@@ -1,5 +1,6 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port's serving path (one GPU).
+"""On-card smoke run of the PyTorch/CUDA port: its serving path and its
+training path (one GPU).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -22,14 +23,42 @@ result line) if it fails:
      path) and in f32, each against the plain CPU f32 forward of the same
      clips;
   5. serve: the port's InferenceEngine (bf16, max_batch 32) behind the
-     shared HTTP server; two rounds of three concurrent POST /classify (1,
+     port's HTTP server; two rounds of three concurrent POST /classify (1,
      5 and 10 videos), GET /healthz and /stats; every result checked
-     against a direct f32 classification, the kernels' launch counts read around the
-     requests; forward clips/s per bucket of the ladder, and at buckets 64
-     and 128 (the serve CLI's default ladder, whose largest epilogues pass
-     2^31 elements).
+     against a direct f32 classification, the kernels' launch counts read
+     around the requests; forward clips/s per bucket of the ladder, and at
+     buckets 64 and 128 (the serve CLI's default ladder, whose largest
+     epilogues pass 2^31 elements);
+  6. K2 backward against its plain PyTorch version at every epilogue shape
+     r2plus1d_18 produces at 16 clips, f32 and bf16, with and without
+     residual and ReLU: dx and d_residual (f32 within 2e-6, bf16 within 1
+     ulp), the four per-channel gradients within rtol 1e-4 of a float64
+     reference, two runs bit-identical; kernel time beside the plain time,
+     summed over one backward pass. The forward output that feeds each
+     backward is K2 forward at the training path's shapes: it is held
+     against its plain version and timed there too (f32 within 2e-6, bf16
+     within 1 ulp; summed over one 16-clip forward);
+  7. train: the training CLI (cli/main.py) on the synthetic dataset, full
+     width r2plus1d_18 + mlp, bf16 compute with float32 masters, batch 16:
+     8 steps through the entry point with the kernels' launch counts read
+     around them (37 forward and 37 backward epilogues and one K1 launch per
+     step); K1 on a training batch (16 synthetic-dataset canvases, 1 clip
+     each) against its plain version, f32 and bf16, and the batch that
+     device_batch hands the step against the same; then 8 steps on one
+     repeated batch (finite losses, the last below the first, BN running
+     statistics moved; step time by CUDA events and by the host's clock,
+     clips/s and peak memory after the warm-up steps); two float32 steps on the card
+     against the same two on the CPU from the same seeds (loss rtol 1e-4,
+     parameters atol 2e-5 from a seeded non-zero Adam state); and one step
+     on a NaN batch, which must leave parameters, moments and the step
+     count as they were.
 
-The line before the last is {"kernels": [...]}; the last is
+The line before the last is {"kernels": [...]}, one row for each kernel on
+each main path that launches it ("path": "serve" or "train"): its launches
+in that path's run, and, at that path's shapes, its error against the plain
+version, its time, the plain version's, and the least time the card could
+take for the same bytes (bound_ms, at the published 3.35 TB/s; the measured
+copy bandwidth is printed beside it). The last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. --json PATH also writes every measurement to PATH. It imports
 the port and the helpers in tests/torch_helpers.py (numpy and torch only).
@@ -51,6 +80,10 @@ import urllib.request
 
 N_CLIPS, CLIP_LEN, SIZE, MAX_BATCH = 4, 16, 112, 32
 N_VIDEOS, FRAMES, HEIGHT, WIDTH = 16, 64, 240, 320
+TRAIN_BS, TRAIN_STEPS, TRAIN_WARMUP = 16, 8, 3
+CPU_CLIPS = 2  # clips of the float32 steps that also run on the CPU
+HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
+F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BN_SEED = 1  # BN scale and bias of every model built here
 # bf16 against the CPU f32 forward, per video: the two runs round at
 # different places (bf16 conv inputs, outputs and epilogues on one side,
@@ -89,6 +122,44 @@ def time_ms(fn, reps=10):
         b.synchronize()
         times.append(a.elapsed_time(b))
     return statistics.median(times)
+
+
+def bound(out, nbytes, flops, copy_gbs):
+    """Write into `out` the least ms the card could take for this work
+    (bound_ms) and which limit binds (bound_by): bytes over the published
+    memory rate against operations over the float32 peak; and the same
+    bytes at the copy rate measured in this run (copy_bound_ms)."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    out["bound_ms"], out["bound_by"] = ((by, "bytes") if by >= op
+                                        else (op, "operations"))
+    out["copy_bound_ms"] = nbytes / 1e9 / copy_gbs * 1e3
+    return (f"{nbytes / 1e9:.3g} GB -> bound {out['bound_ms']:.3f} ms "
+            f"({out['bound_by']}) at the published rate, "
+            f"{out['copy_bound_ms']:.3f} ms at the measured copy rate")
+
+
+def epilogue_bytes_flops(shape, esize, res, relu, backward):
+    """Bytes K2 must move for one epilogue (every operand once) and its
+    float32 operations."""
+    n = math.prod(shape)
+    if backward:  # reads x, dy (+ y under relu); writes dx (+ g)
+        passes, flops = 3 + int(relu) + int(res), 7 + int(relu)
+    else:         # reads x (+ r); writes y
+        passes, flops = 2 + int(res), 2 + int(res) + int(relu)
+    return n * esize * passes, n * flops
+
+
+def measure_copy_bandwidth(dev):
+    import torch
+
+    src = torch.empty(1 << 30, dtype=torch.uint8, device=dev)
+    dst = torch.empty_like(src)
+    ms = time_ms(lambda: dst.copy_(src), reps=5)
+    gbs = 2 * src.numel() / 1e9 / (ms / 1e3)
+    say(f"[env] device copy of 1 GiB: {ms:.3f} ms = {gbs:.0f} GB/s read + "
+        f"written (published peak {HBM_BYTES_PER_S / 1e9:.0f} GB/s)")
+    RECORD["copy_GB_per_s"] = gbs
+    return gbs
 
 
 def phase_env():
@@ -161,16 +232,48 @@ def host_batch(paths, bucket):
     return pack(paths, cfg, bucket, ["c"], np.ones((1, 300), np.float32))
 
 
-def phase_k1(paths, dev):
+def k1_compare(args, dt, what):
+    """K1 on `args` (canvas and six taps, on the card) against its plain
+    version: checked, timed, and the bytes it must move."""
     import torch
 
+    from torch_helpers import bf16_ulps
     from zeroshotvideoclassification_tpu_torch.ops.resample import (
         fused_video_transform,
     )
-    from torch_helpers import bf16_ulps
     from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
         fused_video_transform_cuda,
     )
+
+    got = fused_video_transform_cuda(*args, out_dtype=dt)
+    torch.cuda.synchronize()
+    want = fused_video_transform(*args, out_dtype=dt)
+    torch.cuda.synchronize()
+    err = float((got.float() - want.float()).abs().max())
+    ulps = bf16_ulps(got, want)
+    if dt == torch.float32:
+        check(err <= 2e-6, f"K1 f32 {what}: {err}")
+    else:
+        check(ulps <= 1.0, f"K1 bf16 {what}: {ulps} ulp")
+    ms = time_ms(lambda: fused_video_transform_cuda(*args, out_dtype=dt))
+    plain = time_ms(lambda: fused_video_transform(*args, out_dtype=dt),
+                    reps=5)
+    # canvas and taps read once, the output written once; ~12 float32
+    # operations per output value (two lerps and the normalisation)
+    nbytes = (sum(a.numel() * a.element_size() for a in args)
+              + got.numel() * got.element_size())
+    row = {"shape": list(args[0].shape), "dtype": str(dt).split(".")[-1],
+           "max_abs_err": err, "bf16_ulps": ulps, "ms": ms,
+           "plain_ms": plain, "bytes": nbytes, "flops": 12 * got.numel(),
+           "GB_per_s": nbytes / 1e9 / (ms / 1e3)}
+    say(f"[K1] {what} canvas {'x'.join(map(str, row['shape']))} -> "
+        f"{row['dtype']}: err {err:.3g} ({ulps:.2f} bf16 ulp)  kernel "
+        f"{ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  plain {plain:.3f} ms")
+    return row, want
+
+
+def phase_k1(paths, dev, copy_gbs):
+    import torch
 
     out = {"max_abs_err": 0.0, "shapes": []}
     for bucket in (8, 32):
@@ -179,42 +282,23 @@ def phase_k1(paths, dev):
                 (hb.canvas, hb.y0, hb.y1, hb.wy, hb.x0, hb.x1, hb.wx)]
         for j in (4, 5, 6):  # flip the odd samples: mirrored column taps
             args[j][1::2] = args[j][1::2].flip(1)
-        b, t, hc, wc, _ = args[0].shape
         for dt in (torch.float32, torch.bfloat16):
-            got = fused_video_transform_cuda(*args, out_dtype=dt)
-            torch.cuda.synchronize()
-            want = fused_video_transform(*args, out_dtype=dt)
-            torch.cuda.synchronize()
-            err = float((got.float() - want.float()).abs().max())
-            ulps = bf16_ulps(got, want)
-            if dt == torch.float32:
-                check(err <= 2e-6, f"K1 f32 bucket {bucket}: {err}")
-            else:
-                check(ulps <= 1.0, f"K1 bf16 bucket {bucket}: {ulps} ulp")
-            ms = time_ms(lambda: fused_video_transform_cuda(
-                *args, out_dtype=dt))
-            plain = time_ms(lambda: fused_video_transform(
-                *args, out_dtype=dt), reps=5)
-            gb = (args[0].numel() + got.numel() * got.element_size()) / 1e9
-            row = {"bucket": bucket, "shape": [b, t, hc, wc, 3],
-                   "dtype": str(dt).split(".")[-1], "max_abs_err": err,
-                   "bf16_ulps": ulps, "ms": ms, "plain_ms": plain,
-                   "GB_moved": gb, "GB_per_s": gb / (ms / 1e3)}
+            row, _ = k1_compare(args, dt, f"serve bucket {bucket}")
+            row["bucket"] = bucket
             out["shapes"].append(row)
-            out["max_abs_err"] = max(out["max_abs_err"], err)
-            say(f"[K1] bucket {bucket} canvas {b}x{t}x{hc}x{wc}x3 -> "
-                f"{row['dtype']}: err {err:.3g} ({ulps:.2f} bf16 ulp)  "
-                f"kernel {ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  "
-                f"plain {plain:.3f} ms")
+            out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
     serving = next(r for r in out["shapes"]
                    if r["bucket"] == 8 and r["dtype"] == "bfloat16")
     out["ms"], out["plain_ms"] = serving["ms"], serving["plain_ms"]
+    say("[K1] serve bucket 8 -> bfloat16: " + bound(
+        out, serving["bytes"], serving["flops"], copy_gbs))
     RECORD["k1"] = out
     return out
 
 
 def epilogue_calls(model, x):
-    """(shape [N,T,H,W,C], residual?, relu?) -> count over one forward."""
+    """(shape [N,T,H,W,C], residual?, relu?) -> count over one forward (of
+    `model` in eval mode)."""
     import torch
 
     from zeroshotvideoclassification_tpu_torch.models.layers import (
@@ -241,7 +325,7 @@ def epilogue_calls(model, x):
     return calls
 
 
-def phase_k2(calls, dev):
+def phase_k2(calls, dev, copy_gbs):
     import torch
 
     from torch_helpers import bf16_ulps
@@ -251,7 +335,8 @@ def phase_k2(calls, dev):
     )
 
     g = torch.Generator(device=dev).manual_seed(0)
-    out = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0}
+    out = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0,
+           "bytes": 0, "flops": 0}
     shapes = sorted({k[0] for k in calls}, key=lambda s: -math.prod(s))
     for shape in shapes:
         c = shape[-1]
@@ -295,6 +380,10 @@ def phase_k2(calls, dev):
                     if dt == torch.bfloat16:
                         out["ms"] += n * ms
                         out["plain_ms"] += n * plain
+                        by, fl = epilogue_bytes_flops(shape, 2, res, relu,
+                                                      False)
+                        out["bytes"] += n * by
+                        out["flops"] += n * fl
                     say(f"[K2] {'x'.join(map(str, shape))} {row['dtype']} "
                         f"res={int(res)} relu={int(relu)} x{n}: err "
                         f"{err:.3g} ({ulps:.2f} ulp)  kernel {ms:.3f} ms "
@@ -302,9 +391,412 @@ def phase_k2(calls, dev):
         del x32, r32, x, r
     say(f"[K2] all {len(shapes)} shapes x 8 variants agree; per bf16 forward "
         f"at bucket 8: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} "
-        f"ms over {sum(calls.values())} epilogues")
+        f"ms over {sum(calls.values())} epilogues; "
+        + bound(out, out["bytes"], out["flops"], copy_gbs))
     RECORD["k2"] = out
     return out
+
+
+def phase_k2_bwd(calls, dev, copy_gbs):
+    """K2 backward, and the K2 forward that feeds it, at every epilogue
+    shape of one 16-clip train step. -> (backward's record, forward's)."""
+    import torch
+
+    from torch_helpers import bf16_ulps
+    from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
+        bn_apply_relu_bwd_cuda,
+        bn_apply_relu_bwd_plain,
+        bn_apply_relu_cuda,
+        bn_apply_relu_plain,
+    )
+
+    names = ("dx", "d_scale", "d_bias", "d_mean", "d_var", "d_res")
+    g = torch.Generator(device=dev).manual_seed(1)
+    out = {"max_abs_err": 0.0, "sum_max_rel_err": 0.0, "shapes": [],
+           "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
+    fwd = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0,
+           "bytes": 0, "flops": 0}
+    shapes = sorted({k[0] for k in calls}, key=lambda s: -math.prod(s))
+    for shape in shapes:
+        c = shape[-1]
+        scale = torch.rand(c, device=dev, generator=g) * 1.5 + 0.5
+        bias = torch.randn(c, device=dev, generator=g)
+        mean = torch.randn(c, device=dev, generator=g)
+        var = torch.rand(c, device=dev, generator=g) * 2.7 + 0.3
+        x32 = torch.randn(shape, device=dev, generator=g)
+        r32 = torch.randn(shape, device=dev, generator=g)
+        dy32 = torch.randn(shape, device=dev, generator=g)
+        dims = tuple(range(len(shape) - 1))
+        for dt in (torch.float32, torch.bfloat16):
+            x, r, dy = x32.to(dt), r32.to(dt), dy32.to(dt)
+            for res in (False, True):
+                for relu in (False, True):
+                    f_args = (x, scale, bias, mean, var, r if res else None,
+                              relu)
+                    y = bn_apply_relu_cuda(*f_args)
+                    torch.cuda.synchronize()
+                    y_plain = bn_apply_relu_plain(*f_args)
+                    what = f"K2 fwd {shape} {dt} res={res} relu={relu}"
+                    f_err = float((y.float() - y_plain.float()).abs().max())
+                    f_ulps = bf16_ulps(y, y_plain)
+                    if dt == torch.float32:
+                        check(f_err <= 2e-6, f"{what}: {f_err}")
+                    else:
+                        check(f_ulps <= 1.0, f"{what}: {f_ulps} ulp")
+                    fwd["max_abs_err"] = max(fwd["max_abs_err"], f_err)
+                    del y_plain
+                    args = (x, y, dy, scale, mean, var, relu, res)
+                    got = bn_apply_relu_bwd_cuda(*args)
+                    again = bn_apply_relu_bwd_cuda(*args)
+                    torch.cuda.synchronize()
+                    want = bn_apply_relu_bwd_plain(*args)
+                    what = f"K2 bwd {shape} {dt} res={res} relu={relu}"
+                    for nm, a, b in zip(names, got, again):
+                        check((a is None and b is None) or torch.equal(a, b),
+                              f"{what}: {nm} differs between two runs")
+                    err = 0.0
+                    for i in (0, 5):  # dx, d_res against the plain version
+                        if want[i] is None:
+                            check(got[i] is None, f"{what}: {names[i]}")
+                            continue
+                        e = float((got[i].float() - want[i].float())
+                                  .abs().max())
+                        err = max(err, e)
+                        if dt == torch.float32:
+                            check(e <= 2e-6, f"{what} {names[i]}: {e}")
+                        else:
+                            u = bf16_ulps(got[i], want[i])
+                            check(u <= 1.0, f"{what} {names[i]}: {u} ulp")
+                    # the per-channel gradients against float64 sums
+                    sinv = torch.rsqrt(var.double() + 1e-5)
+                    a64 = scale.double() * sinv
+                    g64 = dy.double()
+                    if relu:
+                        g64 = g64 * (y > 0)
+                    s1 = g64.sum(dims)
+                    g64 *= x.double() * sinv - mean.double() * sinv
+                    s2 = g64.sum(dims)
+                    del g64
+                    ref = (s2, s1, -a64 * s1,
+                           -0.5 * scale.double() * sinv * sinv * s2)
+                    rel = 0.0
+                    for nm, a, b in zip(names[1:5], got[1:5], ref):
+                        tol = 1e-4 * b.abs() + 1e-4 * float(b.abs().max())
+                        d = (a.double() - b).abs()
+                        check(bool((d <= tol).all()),
+                              f"{what} {nm}: off by {float(d.max())}")
+                        rel = max(rel, float((d / float(b.abs().max()))
+                                             .max()))
+                    out["max_abs_err"] = max(out["max_abs_err"], err)
+                    out["sum_max_rel_err"] = max(out["sum_max_rel_err"], rel)
+                    n = calls.get((shape, res, relu), 0)
+                    if not n:
+                        continue
+                    f_ms = time_ms(lambda: bn_apply_relu_cuda(*f_args))
+                    f_plain = time_ms(lambda: bn_apply_relu_plain(*f_args),
+                                      reps=5)
+                    f_by, f_fl = epilogue_bytes_flops(
+                        shape, x.element_size(), res, relu, False)
+                    fwd["shapes"].append({
+                        "shape": list(shape), "dtype": str(dt)[6:],
+                        "residual": res, "relu": relu, "calls": n,
+                        "max_abs_err": f_err, "bf16_ulps": f_ulps,
+                        "ms": f_ms, "plain_ms": f_plain,
+                        "GB_per_s": f_by / 1e9 / (f_ms / 1e3)})
+                    ms = time_ms(lambda: bn_apply_relu_bwd_cuda(*args))
+                    plain = time_ms(lambda: bn_apply_relu_bwd_plain(*args),
+                                    reps=3)
+                    by, fl = epilogue_bytes_flops(shape, x.element_size(),
+                                                  res, relu, True)
+                    row = {"shape": list(shape), "dtype": str(dt)[6:],
+                           "residual": res, "relu": relu, "calls": n,
+                           "max_abs_err": err, "sum_rel_err": rel, "ms": ms,
+                           "plain_ms": plain,
+                           "GB_per_s": by / 1e9 / (ms / 1e3)}
+                    out["shapes"].append(row)
+                    if dt == torch.bfloat16:
+                        out["ms"] += n * ms
+                        out["plain_ms"] += n * plain
+                        out["bytes"] += n * by
+                        out["flops"] += n * fl
+                        fwd["ms"] += n * f_ms
+                        fwd["plain_ms"] += n * f_plain
+                        fwd["bytes"] += n * f_by
+                        fwd["flops"] += n * f_fl
+                    say(f"[K2 fwd, train] {'x'.join(map(str, shape))} "
+                        f"{str(dt)[6:]} res={int(res)} relu={int(relu)} "
+                        f"x{n}: err {f_err:.3g} ({f_ulps:.2f} ulp)  kernel "
+                        f"{f_ms:.3f} ms  plain {f_plain:.3f} ms")
+                    say(f"[K2 bwd] {'x'.join(map(str, shape))} "
+                        f"{row['dtype']} res={int(res)} relu={int(relu)} "
+                        f"x{n}: dx err {err:.3g}, sums rel {rel:.2g}  kernel "
+                        f"{ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  plain "
+                        f"{plain:.3f} ms")
+            del x, r, dy, y, got, again, want
+        del x32, r32, dy32
+    say(f"[K2 bwd] all {len(shapes)} shapes x 8 variants agree and repeat "
+        f"bit for bit; per bf16 backward pass at {TRAIN_BS} clips: kernel "
+        f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms over "
+        f"{sum(calls.values())} epilogues; "
+        + bound(out, out["bytes"], out["flops"], copy_gbs))
+    say(f"[K2 fwd, train] the same shapes and variants agree; per bf16 "
+        f"forward at {TRAIN_BS} clips: kernel {fwd['ms']:.3f} ms, plain "
+        f"{fwd['plain_ms']:.3f} ms over {sum(calls.values())} epilogues; "
+        + bound(fwd, fwd["bytes"], fwd["flops"], copy_gbs))
+    RECORD["k2_bwd"], RECORD["k2_fwd_train"] = out, fwd
+    return out, fwd
+
+
+def kernel_counts():
+    from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
+        bn_apply_relu_bwd_cuda,
+        bn_apply_relu_cuda,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+        fused_video_transform_cuda,
+    )
+
+    return {"video_transform": fused_video_transform_cuda,
+            "bn_apply_relu": bn_apply_relu_cuda,
+            "bn_apply_relu_bwd": bn_apply_relu_bwd_cuda}
+
+
+def zero_counts():
+    for fn in kernel_counts().values():
+        fn.launches = 0
+
+
+def read_counts():
+    return {k: fn.launches for k, fn in kernel_counts().items()}
+
+
+def bn_running(model):
+    import torch
+
+    return torch.cat([b.flatten() for n, b in model.named_buffers()
+                      if n.endswith(("running_mean", "running_var"))])
+
+
+def phase_train(tmp, dev, smi, copy_gbs):
+    """The training CLI's path at full width, then K1 on a training batch,
+    timed steps, the float32 steps against the CPU, and the NaN step.
+    -> (the entry point's launches, K1's record at the training shape)."""
+    import numpy as np
+    import torch
+
+    from torch_helpers import bf16_ulps, seed_adam
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.config import (
+        config_from_namespace,
+        transform_dtype,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.datasets import (
+        build_datasets,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        HostPipeline,
+        device_batch,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
+        bn_apply_relu_bwd_cuda,
+    )
+
+    def argv(dtype, bs, samples):
+        return ["--dataset", "synthetic", "--network", "r2plus1d_18",
+                "--bs", str(bs), "--train_samples", str(samples),
+                "--n_epochs", "1", "--compute_dtype", dtype, "--save_path",
+                os.path.join(tmp, "runs"), "--no-progressbar",
+                "--nopretrained", "--device", str(dev)]
+
+    # (a) the entry point: one epoch of TRAIN_STEPS batches of TRAIN_BS
+    args = argv("bfloat16", TRAIN_BS, TRAIN_BS * TRAIN_STEPS)
+    zero_counts()
+    bn_apply_relu_bwd_cuda.dy_copies = 0
+    t0 = time.perf_counter()
+    summary = train_cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    copies = bn_apply_relu_bwd_cuda.dy_copies
+    say(f"[train] cli.main {' '.join(args[:12])} ...: {TRAIN_STEPS} steps "
+        f"in {wall:.1f} s (cuDNN's algorithm timing included), mean loss "
+        f"{summary['loss']:.5f}, launches {launches}, dy copies {copies}")
+    check(math.isfinite(summary["loss"]) and summary["loss"] > 0,
+          f"cli.main loss {summary['loss']}")
+    check(launches == {"video_transform": TRAIN_STEPS,
+                       "bn_apply_relu": 37 * TRAIN_STEPS,
+                       "bn_apply_relu_bwd": 37 * TRAIN_STEPS},
+          f"launches per step: {launches}")
+
+    # (b) steps on one repeated batch, the same objects the CLI builds
+    ns = train_cli.build_arg_parser().parse_args(args)
+    cfg = config_from_namespace(ns)
+    datasets = build_datasets(cfg, None)
+    exp = train_cli.Experiment(cfg, datasets, device=dev)
+    table = datasets["training"][0]
+    host = next(iter(HostPipeline(table, cfg, TRAIN_BS, seed=cfg.seed)))
+    batch = device_batch(host, table.n_clips, cfg.clip_len,
+                         transform_dtype(cfg), dev)
+    check(tuple(batch["x"].shape) == (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3)
+          and batch["x"].dtype == torch.bfloat16, "train batch shape")
+    # K1 at the training shape: the pipeline's own canvases and taps (random
+    # crops and flips), and the batch device_batch gave the step
+    k1_args = [torch.from_numpy(np.ascontiguousarray(getattr(host, k)))
+               .to(dev)
+               for k in ("canvas", "y0", "y1", "wy", "x0", "x1", "wx")]
+    k1 = {"shapes": []}
+    for dt in (torch.float32, torch.bfloat16):
+        row, want = k1_compare(k1_args, dt, f"train batch of {TRAIN_BS}")
+        k1["shapes"].append(row)
+    ulps = bf16_ulps(batch["x"].reshape(want.shape), want)
+    check(ulps <= 1.0, f"device_batch's bf16 clips are {ulps} ulp from the "
+                       f"plain transform of the same host batch")
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["shapes"])
+    k1["ms"], k1["plain_ms"] = row["ms"], row["plain_ms"]
+    say(f"[K1] train batch of {TRAIN_BS} -> bfloat16 (device_batch's output "
+        f"within {ulps:.2f} ulp of the plain transform): "
+        + bound(k1, row["bytes"], row["flops"], copy_gbs))
+    del k1_args, want
+    class_embed = torch.from_numpy(np.asarray(table.class_embed,
+                                              np.float32)).to(dev)
+    stats0 = bn_running(exp.model).clone()
+
+    def one_step():
+        return exp.train_step(batch["x"], batch["z"], batch["label"],
+                              batch["weight"], class_embed)
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    losses, times, ev_times = [], [], []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        a, b = events()
+        t0 = time.perf_counter()
+        a.record()
+        m = one_step()
+        b.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ev_times.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(times[TRAIN_WARMUP:])
+    event_ms = statistics.median(ev_times[TRAIN_WARMUP:])
+    # the same steps queued without a synchronisation in between
+    n_queued = TRAIN_STEPS - TRAIN_WARMUP
+    a, b = events()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n_queued):
+        m = one_step()
+    b.record()
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) * 1e3 / n_queued
+    queued_event_ms = a.elapsed_time(b) / n_queued
+    losses.append(float(m["loss"]))
+    say(f"[train] repeated batch of {TRAIN_BS} x {CLIP_LEN}x{SIZE}x{SIZE} "
+        f"bf16: losses {[round(v, 5) for v in losses]}")
+    say(f"[train] step {event_ms:.2f} ms by CUDA events = "
+        f"{TRAIN_BS / event_ms * 1e3:.1f} clips/s, {step_ms:.1f} ms by the "
+        f"host's clock = {TRAIN_BS / step_ms * 1e3:.1f} clips/s (medians of "
+        f"{n_queued} synchronised steps after {TRAIN_WARMUP} warm-up steps; "
+        f"first step {times[0]:.0f} ms); queued back to back "
+        f"{queued_event_ms:.2f} ms by events, {queued_ms:.1f} ms by the "
+        f"host's clock = {TRAIN_BS / queued_ms * 1e3:.1f} clips/s; peak "
+        f"memory {peak:.2f} GiB  ({smi})")
+    say(f"[train] every step, ms by events: "
+        f"{[round(v, 2) for v in ev_times]}; by the host's clock: "
+        f"{[round(v, 2) for v in times]}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    moved = float((bn_running(exp.model) - stats0).abs().max())
+    check(moved > 1e-3, f"BN running statistics moved by {moved}")
+    check(int(exp.optimizer.total_notfinite) == 0, "a finite step skipped")
+    for p in exp.model.parameters():
+        check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
+              "masters and gradients must be float32")
+    exp.log.close()
+    del exp, batch
+
+    # (c) two float32 steps, card against CPU, same seeds
+    args32 = argv("float32", CPU_CLIPS, CPU_CLIPS)
+    cfg32 = config_from_namespace(
+        train_cli.build_arg_parser().parse_args(args32))
+    data32 = build_datasets(cfg32, None)
+    table = data32["training"][0]
+    host = next(iter(HostPipeline(table, cfg32, CPU_CLIPS, seed=cfg32.seed)))
+    ce_np = np.asarray(table.class_embed, np.float32)
+    runs = {}
+    for d in ("cpu", dev):
+        exp = train_cli.Experiment(cfg32, data32, device=d)
+        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+        w0 = exp.model.model.stem[0].weight.detach().cpu().clone()
+        b = device_batch(host, table.n_clips, cfg32.clip_len,
+                         torch.float32, d)
+        ce = torch.from_numpy(ce_np).to(d)
+        t0 = time.perf_counter()
+        ls = [float(exp.train_step(b["x"], b["z"], b["label"], b["weight"],
+                                   ce)["loss"]) for _ in range(2)]
+        runs[str(d)] = (ls, {k: v.detach().cpu().clone() for k, v in
+                             exp.model.named_parameters()},
+                        time.perf_counter() - t0)
+        exp.log.close()
+        if d == "cpu":
+            del exp, b
+    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, _) = runs["cpu"], runs[str(dev)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    dmax = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    moved = float((p_gpu["model.stem.0.weight"] - w0).abs().max())
+    say(f"[train] 2 float32 steps of {CPU_CLIPS} clips, card vs CPU "
+        f"(CPU {s_cpu:.1f} s): losses {l_gpu} vs {l_cpu} (rel {rel:.2g}, "
+        f"bar 1e-4); parameters differ by at most {dmax:.3g} (bar 2e-5) "
+        f"after moving by up to {moved:.3g}")
+    check(rel <= 1e-4, f"loss card vs CPU: {l_gpu} vs {l_cpu}")
+    check(dmax <= 2e-5, f"parameters card vs CPU: {dmax}")
+    check(moved > 1e-4, f"the two steps moved the stem weights by {moved}")
+
+    # (d) a NaN batch: the step must leave the optimizer and weights alone
+    before = {k: v.detach().clone() for k, v in exp.model.named_parameters()}
+    mom = [(exp.optimizer.state[p]["exp_avg"].clone(),
+            exp.optimizer.state[p]["exp_avg_sq"].clone())
+           for p in exp.model.parameters()]
+    count = float(exp.optimizer.count)
+    bad = torch.full_like(b["x"], float("nan"))
+    m = exp.train_step(bad, b["z"], b["label"], b["weight"], ce)
+    torch.cuda.synchronize()
+    check(not math.isfinite(float(m["loss"])), "the NaN batch's loss")
+    check(all(torch.equal(v, before[k])
+              for k, v in exp.model.named_parameters()),
+          "a NaN step changed the parameters")
+    check(all(torch.equal(exp.optimizer.state[p]["exp_avg"], a)
+              and torch.equal(exp.optimizer.state[p]["exp_avg_sq"], v)
+              for p, (a, v) in zip(exp.model.parameters(), mom)),
+          "a NaN step changed Adam's moments")
+    check(float(exp.optimizer.count) == count == 1002
+          and int(exp.optimizer.total_notfinite) == 1
+          and not bool(exp.optimizer.last_finite),
+          "a NaN step changed Adam's step count or was not counted")
+    say(f"[train] NaN batch: step skipped on the device (count stays "
+        f"{int(count)}, total_notfinite 1), parameters and moments "
+        f"unchanged")
+    RECORD["train"] = {
+        "launches": launches, "dy_copies": copies, "cli_seconds": wall,
+        "cli_summary": summary, "losses": losses, "step_ms": step_ms,
+        "step_ms_all": times, "queued_step_ms": queued_ms,
+        "step_event_ms": event_ms, "step_event_ms_all": ev_times,
+        "queued_step_event_ms": queued_event_ms,
+        "event_clips_per_s": TRAIN_BS / event_ms * 1e3,
+        "clips_per_s": TRAIN_BS / step_ms * 1e3,
+        "queued_clips_per_s": TRAIN_BS / queued_ms * 1e3,
+        "peak_GiB": peak, "f32_card_vs_cpu": {
+            "loss_rel": rel, "param_max_abs": dmax, "cpu_seconds": s_cpu}}
+    RECORD["k1_train"] = k1
+    return launches, k1
 
 
 def phase_model(paths, dev):
@@ -386,12 +878,6 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
     import torch
     from torch_helpers import copy_bn
 
-    from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
-        bn_apply_relu_cuda,
-    )
-    from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
-        fused_video_transform_cuda,
-    )
     from zeroshotvideoclassification_tpu_torch.serve import (
         InferenceEngine,
         start_server,
@@ -420,8 +906,7 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
         def send(rnd, i):
             rounds[rnd][i] = post(url + "/classify", {"videos": requests[i]})
 
-        fused_video_transform_cuda.launches = 0
-        bn_apply_relu_cuda.launches = 0
+        zero_counts()
         for rnd in range(len(rounds)):
             threads = [threading.Thread(target=send, args=(rnd, i))
                        for i in range(len(requests))]
@@ -429,8 +914,7 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
                 th.start()
             for th in threads:
                 th.join(timeout=600)
-        launches = {"video_transform": fused_video_transform_cuda.launches,
-                    "bn_apply_relu": bn_apply_relu_cuda.launches}
+        launches = read_counts()
         check(all(r is not None for rnd in rounds for r in rnd),
               "a request failed")
         health = get(url + "/healthz")
@@ -473,7 +957,7 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
     for b in engine.batch_buckets + [64, 128]:
         x = torch.rand((b, N_CLIPS, CLIP_LEN, SIZE, SIZE, 3), device=dev,
                        dtype=torch.float32).sub_(0.5).to(torch.bfloat16)
-        ms = time_ms(lambda: eval_step(model, x), reps=5)
+        ms = time_ms(lambda: eval_step(model, x), reps=5 if b <= 32 else 2)
         fwd[b] = {"ms": ms, "clips_per_s": b * N_CLIPS / (ms / 1e3)}
         say(f"[serve] forward bucket {b} ({b * N_CLIPS} clips) bf16: "
             f"{ms:.2f} ms = {fwd[b]['clips_per_s']:.1f} clips/s  ({smi})")
@@ -509,38 +993,60 @@ def main(argv=None):
 
     smi = phase_env()
     phase_build()
+    copy_gbs = measure_copy_bandwidth(dev)
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
         paths = make_videos(tmp)
         say(f"[data] {N_VIDEOS} seeded clips {FRAMES}x{HEIGHT}x{WIDTH}x3 "
             f"uint8 written in {time.perf_counter() - t0:.1f} s")
-        k1 = phase_k1(paths, dev)
+        k1 = phase_k1(paths, dev, copy_gbs)
         m32, m16, proto, expected = phase_model(paths, dev)
         calls = epilogue_calls(m16, torch.zeros(
             (8, N_CLIPS, CLIP_LEN, SIZE, SIZE, 3), device=dev,
             dtype=torch.bfloat16))
         del m16
-        k2 = phase_k2(calls, dev)
-        launches = phase_serve(paths, m32, proto, expected, dev, smi)
+        k2 = phase_k2(calls, dev, copy_gbs)
+        serve_launches = phase_serve(paths, m32, proto, expected, dev, smi)
+        train_calls = epilogue_calls(m32, torch.zeros(
+            (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3), device=dev))
         del m32
+        torch.cuda.empty_cache()
+        k2b, k2_train = phase_k2_bwd(train_calls, dev, copy_gbs)
+        torch.cuda.empty_cache()
+        train_launches, k1_train = phase_train(tmp, dev, smi, copy_gbs)
 
-    check(not {"jax", "jaxlib"} & set(sys.modules), "JAX was imported")
+    outside = [m for m in sys.modules if m.split(".")[0] in (
+        "jax", "jaxlib", "zeroshotvideoclassification_tpu")]
+    check(not outside, f"JAX or the JAX package was imported: {outside[:5]}")
     src = "zeroshotvideoclassification_tpu_torch/csrc/"
+    ops = "zeroshotvideoclassification_tpu/ops/"
+
+    def row(name, source, replaces, path, launches, rec):
+        """One kernel on one main path: its launches in that path's run
+        and its measurements at that path's shapes."""
+        return {"name": name, "path": path, "route": "cuda",
+                "source": src + source, "replaces": ops + replaces,
+                "launches": launches[name],
+                "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
+                "bound_by": rec["bound_by"],
+                "copy_bound_ms": rec["copy_bound_ms"], "library_ms": None}
+
+    k1_at, k2_at = "resample_pallas.py:74", "bn_pallas.py:131"
     kernels = {"kernels": [
-        {"name": "video_transform", "route": "cuda",
-         "source": src + "video_transform.cu",
-         "replaces": "zeroshotvideoclassification_tpu/ops/"
-                     "resample_pallas.py:74",
-         "launches": launches["video_transform"],
-         "max_abs_err": k1["max_abs_err"], "ms": k1["ms"],
-         "plain_ms": k1["plain_ms"]},
-        {"name": "bn_apply_relu", "route": "cuda",
-         "source": src + "bn_apply_relu.cu",
-         "replaces": "zeroshotvideoclassification_tpu/ops/bn_pallas.py:131",
-         "launches": launches["bn_apply_relu"],
-         "max_abs_err": k2["max_abs_err"], "ms": k2["ms"],
-         "plain_ms": k2["plain_ms"]},
+        row("video_transform", "video_transform.cu", k1_at, "serve",
+            serve_launches, k1),
+        row("video_transform", "video_transform.cu", k1_at, "train",
+            train_launches, k1_train),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "serve",
+            serve_launches, k2),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train",
+            train_launches, k2_train),
+        row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
+            "train", train_launches, k2b),
     ]}
+    check(all(k["launches"] > 0 for k in kernels["kernels"]),
+          f"a kernel was never launched on a main path: {kernels}")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

@@ -1,9 +1,9 @@
 """K2 forward, the fused BN-apply (+ residual) (+ ReLU) epilogue: the port's
 plain version against the JAX package's Pallas kernel (interpret mode, as
 tests/test_bn_pallas.py runs it) and against models/layers.batchnorm_relu,
-the device dispatch and validation of the wrappers, and the eval-only BN
-module. The CUDA kernel itself is compared with the plain version on the
-card, in tests/test_torch_cuda.py."""
+the device dispatch and validation of the wrappers, and the BN module. The
+CUDA kernel itself is compared with the plain version on the card, in
+tests/test_torch_cuda.py."""
 
 import jax.numpy as jnp
 import numpy as np
@@ -117,13 +117,20 @@ def test_batchnorm_relu_takes_any_cpu_layout(rng):
 
 
 def test_bn_module_is_eval_only(rng):
+    """The module's eval mode is the fused epilogue on the running
+    statistics; since the training slice its train mode no longer raises but
+    normalises with the batch statistics and moves the running ones
+    (tests/test_torch_train.py holds that against the JAX package)."""
     bn = L.BatchNorm3d(8)
     x = torch.randn(2, 8, 2, 3, 3).to(memory_format=torch.channels_last_3d)
-    with pytest.raises(NotImplementedError, match="train-mode"):
-        bn(x)
-    bn.eval()
+    y = bn(x)  # train mode
+    assert float(y.mean(dim=(0, 2, 3, 4)).abs().max()) < 1e-5
+    assert int(bn.num_batches_tracked) == 1
+    assert float(bn.running_mean.abs().max()) > 0
+    bn = L.BatchNorm3d(8).eval()
     torch.testing.assert_close(bn(x, relu=True),
                                torch.relu(x) / np.sqrt(1 + 1e-5))
+    assert int(bn.num_batches_tracked) == 0
     assert set(bn.state_dict()) == {"weight", "bias", "running_mean",
                                     "running_var", "num_batches_tracked"}
 

@@ -13,12 +13,14 @@ import numpy as np
 import pytest
 import torch
 
-from zeroshotvideoclassification_tpu.data.transform_params import (
+from zeroshotvideoclassification_tpu_torch.data.transform_params import (
     make_transform_params,
     resample_indices,
 )
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     bn_apply_relu,
+    bn_apply_relu_bwd_cuda,
+    bn_apply_relu_bwd_plain,
     bn_apply_relu_cuda,
     bn_apply_relu_plain,
 )
@@ -33,6 +35,7 @@ from torch_helpers import (
     bf16_ulps,
     calibrate_bn,
     copy_bn,
+    seed_adam,
     synthetic_clip,
 )
 
@@ -45,7 +48,8 @@ def cuda():
         pytest.skip("needs a CUDA GPU and nvcc (run on the card)")
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
-    return torch.device("cuda")
+    with torch.enable_grad():  # whatever another module left switched off
+        yield torch.device("cuda")
 
 
 def _transform_args(dev, b=3, t=5, hc=226, wc=226, seed=0):
@@ -143,6 +147,197 @@ def test_k2_index_past_2_pow_31(cuda):
         e = min(s + chunk, rows)
         want = bn_apply_relu_plain(x[s:e], *stats, r[s:e], True)
         assert bf16_ulps(got[s:e], want) <= 1.0, s
+
+
+BWD_NAMES = ("dx", "d_scale", "d_bias", "d_mean", "d_var", "d_res")
+
+
+def _check_bwd(got, want, ref64, dtype):
+    """dx and d_res against the plain version (float32 within 2e-6, bf16
+    within 1 ulp); the four per-channel results, whose sums take another
+    order than PyTorch's, within rtol 1e-4 (and 1e-4 of the largest entry)
+    of the same formulas summed in float64."""
+    for name, g, w in zip(BWD_NAMES, got, want):
+        if w is None:
+            assert g is None, name
+        elif name in ("dx", "d_res"):
+            assert g.dtype == dtype and g.shape == w.shape, name
+            if dtype == torch.float32:
+                torch.testing.assert_close(g, w, atol=2e-6, rtol=0, msg=name)
+            else:
+                assert bf16_ulps(g, w) <= 1.0, name
+    for name, g, r in zip(BWD_NAMES[1:5], got[1:5], ref64):
+        torch.testing.assert_close(
+            g.double(), r, rtol=1e-4, atol=1e-4 * float(r.abs().max()),
+            msg=name)
+
+
+def _bwd_ref64(x, y, dy, scale, mean, var, relu, eps=1e-5):
+    sinv = torch.rsqrt(var.double() + eps)
+    a = scale.double() * sinv
+    g = dy.double()
+    if relu:
+        g = g * (y.double() > 0)
+    xh = x.double() * sinv - mean.double() * sinv
+    dims = tuple(range(x.dim() - 1))
+    s1, s2 = g.sum(dims), (g * xh).sum(dims)
+    return s2, s1, -a * s1, -0.5 * scale.double() * sinv * sinv * s2
+
+
+@pytest.mark.parametrize("c", [45, 921])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("with_res", [False, True])
+@pytest.mark.parametrize("relu", [True, False])
+def test_k2_backward_matches_plain(cuda, c, dtype, with_res, relu):
+    shape = (4, 3, 9, 11, c)
+    x, stats, r = _bn_operands(cuda, shape, dtype, with_res)
+    scale, bias, mean, var = stats
+    y = bn_apply_relu_cuda(x, *stats, r, relu)
+    dy = torch.randn(shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(5)).to(dtype)
+    want = bn_apply_relu_bwd_plain(x, y, dy, scale, mean, var, relu, with_res)
+    before = bn_apply_relu_bwd_cuda.launches
+    got = bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu, with_res)
+    again = bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu, with_res)
+    torch.cuda.synchronize()
+    assert bn_apply_relu_bwd_cuda.launches == before + 2
+    _check_bwd(got, want, _bwd_ref64(x, y, dy, scale, mean, var, relu), dtype)
+    for name, a, b in zip(BWD_NAMES, got, again):  # bit-reproducible
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+def test_k2_backward_through_autograd_and_strided_dy(cuda):
+    """bn_apply_relu on CUDA tensors differentiates through the kernel, and
+    a dy that arrives non-contiguous is copied, not refused."""
+    shape = (2, 3, 5, 7, 45)
+    x, stats, r = _bn_operands(cuda, shape, torch.float32, True)
+    leaves = [t.requires_grad_() for t in (x, *stats, r)]
+    w = torch.randn((2, 45, 3, 5, 7), device=cuda).permute(0, 2, 3, 4, 1)
+    assert not w.is_contiguous()
+    launches = bn_apply_relu_bwd_cuda.launches
+    copies = bn_apply_relu_bwd_cuda.dy_copies
+    y = bn_apply_relu(x, *stats, r, True)
+    got = torch.autograd.grad((y * w).sum(), leaves)
+    assert bn_apply_relu_bwd_cuda.launches == launches + 1
+    assert bn_apply_relu_bwd_cuda.dy_copies == copies + 1
+    y2 = bn_apply_relu_plain(x, *stats, r, True)
+    want = torch.autograd.grad((y2 * w).sum(), leaves)
+    for g, v in zip(got, want):
+        torch.testing.assert_close(g, v, rtol=1e-4, atol=1e-4)
+
+
+def test_k2_backward_finite_differences(cuda):
+    """The Function's gradients against central finite differences of its
+    own float32 forward on a tiny shape (no ReLU, so the function is
+    smooth): a float32 gradcheck, eps 1e-2, within 2e-3."""
+    g = torch.Generator(cuda).manual_seed(2)
+    shape = (2, 3, 4)
+    x = torch.randn(shape, device=cuda, generator=g)
+    r = torch.randn(shape, device=cuda, generator=g)
+    stats = [torch.rand(4, device=cuda, generator=g) + 0.5,
+             torch.randn(4, device=cuda, generator=g),
+             torch.randn(4, device=cuda, generator=g),
+             torch.rand(4, device=cuda, generator=g) + 1.0]
+    w = torch.randn(shape, device=cuda, generator=g)
+    args = [x, *stats, r]
+
+    def f(*a):
+        return float((bn_apply_relu(a[0], *a[1:5], a[5], False).double()
+                      * w.double()).sum())
+
+    leaves = [t.clone().requires_grad_() for t in args]
+    got = torch.autograd.grad(
+        (bn_apply_relu(leaves[0], *leaves[1:5], leaves[5], False) * w).sum(),
+        leaves)
+    eps = 1e-2
+    for k, (t, gk) in enumerate(zip(args, got)):
+        flat = t.reshape(-1)
+        for i in range(flat.numel()):
+            hi = [a.clone() for a in args]
+            lo = [a.clone() for a in args]
+            hi[k].reshape(-1)[i] += eps
+            lo[k].reshape(-1)[i] -= eps
+            fd = (f(*hi) - f(*lo)) / (2 * eps)
+            assert abs(fd - float(gk.reshape(-1)[i])) <= 2e-3 * max(
+                1.0, abs(fd)), (k, i, fd, float(gk.reshape(-1)[i]))
+
+
+def test_k2_backward_index_past_2_pow_31(cuda):
+    """A backward of more than 2^31 elements takes the 64-bit index path;
+    dx and d_res are held against the plain version chunk by chunk and the
+    sums against the chunks' float64 sums."""
+    c = 144
+    rows = 2 ** 31 // c + 1000
+    x, stats, r = _bn_operands(cuda, (rows, c), torch.bfloat16, True)
+    scale, bias, mean, var = stats
+    y = bn_apply_relu_cuda(x, *stats, r, True)
+    del r
+    dy = torch.randn((rows, c), device=cuda, dtype=torch.bfloat16,
+                     generator=torch.Generator(cuda).manual_seed(3))
+    got = bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, True, True)
+    torch.cuda.synchronize()
+    chunk = 2 ** 20
+    ref = [torch.zeros(c, device=cuda, dtype=torch.float64) for _ in range(4)]
+    for s in range(0, rows, chunk):
+        e = min(s + chunk, rows)
+        want = bn_apply_relu_bwd_plain(x[s:e], y[s:e], dy[s:e], scale, mean,
+                                       var, True, True)
+        assert bf16_ulps(got[0][s:e], want[0]) <= 1.0, s
+        assert bf16_ulps(got[5][s:e], want[5]) <= 1.0, s
+        for acc, part in zip(ref, _bwd_ref64(x[s:e], y[s:e], dy[s:e], scale,
+                                             mean, var, True)):
+            acc += part
+    for name, g, v in zip(BWD_NAMES[1:5], got[1:5], ref):
+        torch.testing.assert_close(g.double(), v, rtol=1e-4,
+                                   atol=1e-4 * float(v.abs().max()), msg=name)
+
+
+def test_train_step_on_the_card_matches_the_cpu(cuda):
+    """Two float32 train steps of the full-width model on a small clip, on
+    the card (kernels) and on the CPU (plain versions), from the same seeds:
+    loss within rtol 1e-4, parameters within atol 2e-5 from a seeded
+    non-zero Adam state (torch_helpers.seed_adam says why not from zero)."""
+    from zeroshotvideoclassification_tpu_torch.config import Config
+    from zeroshotvideoclassification_tpu_torch.models import get_network
+    from zeroshotvideoclassification_tpu_torch.models.layers import (
+        init_weights,
+    )
+    from zeroshotvideoclassification_tpu_torch.train import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(0)
+    x = rng.uniform(-0.5, 0, (4, 1, 8, 32, 32, 3)).astype(np.float32)
+    ce = rng.normal(size=(5, 300)).astype(np.float32)
+    ce /= np.linalg.norm(ce, axis=1, keepdims=True)
+    labels = rng.integers(0, 5, 4).astype(np.int32)
+    runs = {}
+    for dev in ("cpu", cuda):
+        m = get_network(Config(network="r2plus1d_18"))
+        init_weights(m, torch.Generator().manual_seed(0))
+        m = m.to(device=dev, memory_format=torch.channels_last_3d)
+        opt = seed_adam(make_optimizer(m.parameters(), 1e-3), m, seed=1)
+        step = make_train_step(m, opt, compute_dtype=torch.float32)
+        t = [torch.from_numpy(a).to(dev) for a in
+             (x, ce[labels], labels, np.ones(4, np.float32), ce)]
+        before = (bn_apply_relu_cuda.launches,
+                  bn_apply_relu_bwd_cuda.launches)
+        losses = [float(step(*t)["loss"]) for _ in range(2)]
+        after = (bn_apply_relu_cuda.launches, bn_apply_relu_bwd_cuda.launches)
+        runs[str(dev)] = (losses, {k: v.cpu() for k, v in
+                                   m.state_dict().items()},
+                          [a - b for a, b in zip(after, before)])
+    (l0, sd0, n0), (l1, sd1, n1) = runs.values()
+    assert n0 == [0, 0] and n1 == [74, 74]  # 37 epilogues x 2 steps
+    np.testing.assert_allclose(l1, l0, rtol=1e-4)
+    for k in sd0:
+        if sd0[k].dtype == torch.float32:
+            # BN running statistics of the late layers span 16 positions at
+            # this size: held at the train-forward bar, not the update's
+            tol = 1e-4 if "running" in k else 2e-5
+            torch.testing.assert_close(sd1[k], sd0[k], atol=tol, rtol=1e-4,
+                                       msg=k)
 
 
 def test_model_forward_runs_through_the_kernels(cuda):

@@ -23,22 +23,9 @@ from zeroshotvideoclassification_tpu_torch.train import (
     load_checkpoint,
 )
 
+from torch_helpers import randomize_bn
+
 ARCHS = ["r2plus1d_18", "r3d_18", "mc3_18"]
-
-
-def randomize_bn(params, state, rng):
-    """Random BN scale/bias and running mean/var (in place, numpy)."""
-    for k, v in params.items():
-        if not isinstance(v, dict):
-            continue
-        if set(v) == {"scale", "bias"}:
-            c = v["scale"].shape[0]
-            v["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
-            v["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
-            state[k]["mean"] = rng.normal(0, 0.2, c).astype(np.float32)
-            state[k]["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
-        elif k in state:
-            randomize_bn(v, state[k], rng)
 
 
 def jax_weights(arch, seed=0):

@@ -1,5 +1,6 @@
 """Helpers shared by the PyTorch port's tests and chip_smoke.py: seeded
-synthetic clips, a bf16 ulp distance, and seeded BatchNorm statistics.
+synthetic clips, random BN statistics for JAX trees, a bf16 ulp distance,
+seeded BatchNorm statistics and a seeded Adam state.
 Imports numpy and torch only."""
 
 from __future__ import annotations
@@ -27,6 +28,22 @@ def synthetic_clip(seed: int, frames: int, height: int,
     v = 255 * (0.5 * color + 0.35 * g * r.uniform(0.2, 1, 3))
     v = v + r.normal(0, r.uniform(2, 30), (frames, height, width, 3))
     return np.clip(v, 0, 255).astype(np.uint8)
+
+
+def randomize_bn(params, state, rng):
+    """Random BN scale/bias and running mean/var in the JAX package's
+    (params, model_state) trees of numpy arrays, in place."""
+    for k, v in params.items():
+        if not isinstance(v, dict):
+            continue
+        if set(v) == {"scale", "bias"}:
+            c = v["scale"].shape[0]
+            v["scale"] = rng.uniform(0.5, 1.5, c).astype(np.float32)
+            v["bias"] = rng.normal(0, 0.2, c).astype(np.float32)
+            state[k]["mean"] = rng.normal(0, 0.2, c).astype(np.float32)
+            state[k]["var"] = rng.uniform(0.5, 2.0, c).astype(np.float32)
+        elif k in state:
+            randomize_bn(v, state[k], rng)
 
 
 def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
@@ -88,3 +105,25 @@ def copy_bn(src: nn.Module, dst: nn.Module) -> nn.Module:
         for name in ("weight", "bias", "running_mean", "running_var"):
             getattr(b, name).copy_(getattr(a, name))
     return dst
+
+
+@torch.no_grad()
+def seed_adam(optimizer, model: nn.Module, seed: int, count: int = 1000):
+    """Give `optimizer` (train/optimizer.GuardedAdam over `model`'s
+    parameters) the state of a run well under way, from a CPU generator
+    seeded with `seed`: first moments 3e-3 N(0, 1), second moments 1e-3
+    U(0.5, 2), step count `count`. From zero moments Adam's first updates are
+    lr * g / |g|, so two runs whose gradients differ only in float32
+    summation order land up to 2 * lr apart wherever a gradient entry is
+    near zero; from this state such noise moves a weight by < 1e-6 while the
+    update itself moves it by ~1e-4."""
+    g = torch.Generator().manual_seed(seed)
+    optimizer.count.fill_(int(count))
+    for p in model.parameters():
+        st = optimizer.state[p]
+        st["step"] = optimizer.count
+        st["exp_avg"] = (3e-3 * torch.randn(p.shape, generator=g)).to(
+            p.device)
+        st["exp_avg_sq"] = (1e-3 * (torch.rand(p.shape, generator=g) * 1.5
+                                    + 0.5)).to(p.device)
+    return optimizer

@@ -45,6 +45,8 @@ SIGNATURES = {
     "zsvc_video_transform_bf16": [_P] * 8 + [_I] * 5 + [_P],
     "zsvc_bn_apply_relu_f32": [_P] * 5 + [_LL, _I, _I, _P],
     "zsvc_bn_apply_relu_bf16": [_P] * 5 + [_LL, _I, _I, _P],
+    "zsvc_bn_bwd_f32": [_P] * 10 + [_LL] + [_I] * 5 + [_P],
+    "zsvc_bn_bwd_bf16": [_P] * 10 + [_LL] + [_I] * 5 + [_P],
 }
 
 _lock = threading.Lock()

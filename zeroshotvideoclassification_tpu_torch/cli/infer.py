@@ -8,8 +8,9 @@ class names + videos -> ranked predictions, one JSON line per video.
       --classes "playing guitar" "riding a horse" --videos clip1.npy \\
       --device cuda
 
-The flags, the class-name embedding (resolve_classes) and the whole host
-pipeline are the JAX package's, imported as they are. --weights takes a JAX
+The flags and the class-name embedding (add_class_and_model_args,
+resolve_classes, build_class_embeddings) are copies of the JAX CLI's, and the
+host pipeline is the port's own copy (data/pipeline.py). --weights takes a JAX
 npz checkpoint, loaded strictly; without one the model is a seeded random
 init. --device defaults to cuda; asking for cuda without a GPU raises.
 """
@@ -24,28 +25,41 @@ from typing import List, Optional, Sequence
 import numpy as np
 import torch
 
-from zeroshotvideoclassification_tpu.cli.infer import (
-    add_class_and_model_args,
-    resolve_classes,
-)
-from zeroshotvideoclassification_tpu.data.datasets import VideoTable
-from zeroshotvideoclassification_tpu.data.decode import detect_loader
-from zeroshotvideoclassification_tpu.data.pipeline import HostPipeline
 from zeroshotvideoclassification_tpu_torch.config import (
     Config,
     torch_dtype,
     transform_dtype,
 )
-from zeroshotvideoclassification_tpu_torch.data.pipeline import device_batch
+from zeroshotvideoclassification_tpu_torch.data.datasets import VideoTable
+from zeroshotvideoclassification_tpu_torch.data.decode import detect_loader
+from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+    HostPipeline,
+    device_batch,
+)
 from zeroshotvideoclassification_tpu_torch.models import get_network
 from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
 from zeroshotvideoclassification_tpu_torch.ops.cdist import cosine_distances
+from zeroshotvideoclassification_tpu_torch.text import (
+    SyntheticWordVectors,
+    classes2embedding,
+    load_word2vec,
+)
 from zeroshotvideoclassification_tpu_torch.train import (
     eval_step,
     load_checkpoint,
 )
 
 INIT_SEED = 0
+
+
+def build_class_embeddings(class_names: Sequence[str], rule: str,
+                           args) -> np.ndarray:
+    """[C, 300] unit rows via the training-time embedding path."""
+    if args.synthetic_word2vec:
+        wv = SyntheticWordVectors()
+    else:
+        wv = load_word2vec(args.word2vec_path, args.word2vec_cache)
+    return classes2embedding(rule, class_names, wv)
 
 
 def resolve_device(device) -> torch.device:
@@ -157,6 +171,66 @@ def classify_videos(videos: Sequence[str], class_names: Sequence[str],
                 paths, dist, ok, list(class_names), args.top_k)):
             results[pos] = r
     return results
+
+
+def add_class_and_model_args(p: argparse.ArgumentParser) -> None:
+    """Class-embedding + model flags shared with cli/serve.py."""
+    p.add_argument("--classes", nargs="*", default=None,
+                   help="candidate class names (zero-shot: any names)")
+    p.add_argument("--classes_file", default=None,
+                   help="file with one class name per line")
+    p.add_argument("--class_rule", default="kinetics",
+                   choices=["ucf101", "hmdb51", "kinetics", "activitynet",
+                            "sun"],
+                   help="name->words rule set (text/class_names.py)")
+    p.add_argument("--weights", default="none")
+    p.add_argument("--network", default="r2plus1d_18")
+    p.add_argument("--head", default="mlp")
+    p.add_argument("--n_clips", type=int, default=4,
+                   help="TSN windows per video (clip-mean pooled)")
+    p.add_argument("--clip_len", type=int, default=16)
+    p.add_argument("--size", type=int, default=112)
+    p.add_argument("--bs", type=int, default=8)
+    p.add_argument("--top_k", type=int, default=5)
+    p.add_argument("--compute_dtype", default="bfloat16",
+                   choices=["bfloat16", "float32"])
+    p.add_argument("--decode_scale", type=int, default=1,
+                   choices=[1, 2, 4, 8],
+                   help="max libjpeg DCT-scale denominator for frame-dir "
+                        "JPEG decode (1 = exact reference decode parity; "
+                        "docs/TUNING.md)")
+    p.add_argument("--word2vec_path",
+                   default="./assets/GoogleNews-vectors-negative300.bin")
+    p.add_argument("--word2vec_cache", default="./assets/word2vec_cache.npz")
+    p.add_argument("--synthetic_word2vec", action="store_true",
+                   help="deterministic hash embeddings (no word2vec asset; "
+                        "tests/smoke only)")
+    p.add_argument("--class_embed", default=None,
+                   help="precomputed class embeddings: .npz with 'classes' "
+                        "and 'embeddings' [C,300] (skips word2vec)")
+
+
+def resolve_classes(args):
+    """(class_names, class_embed [C,300] unit rows) from the shared flags."""
+    if args.class_embed:
+        z = np.load(args.class_embed, allow_pickle=False)
+        class_names = [str(c) for c in z["classes"]]
+        class_embed = np.asarray(z["embeddings"], np.float32)
+        if class_embed.ndim != 2 or len(class_names) != len(class_embed):
+            raise SystemExit("--class_embed: need classes[C], embeddings[C,D]")
+        class_embed /= np.maximum(
+            np.linalg.norm(class_embed, axis=1, keepdims=True), 1e-12)
+    else:
+        class_names = list(args.classes or [])
+        if args.classes_file:
+            with open(args.classes_file) as f:
+                class_names += [l.strip() for l in f if l.strip()]
+        if not class_names:
+            raise SystemExit("no classes: pass --classes, --classes_file "
+                             "or --class_embed")
+        class_embed = build_class_embeddings(class_names, args.class_rule,
+                                             args)
+    return class_names, class_embed
 
 
 def build_arg_parser() -> argparse.ArgumentParser:

@@ -1,0 +1,278 @@
+"""Training entry point with reference CLI parity, on one GPU.
+
+Counterpart of zeroshotvideoclassification_tpu/cli/main.py for the part of
+Experiment that trains: build the datasets, then per epoch set the learning
+rate from the MultiStepLR schedule, iterate the host pipeline (seeded with
+seed + epoch, sample-capped like reference/main.py:208), move each host
+batch to the device (pinned H2D + the K1 transform), take one train step
+(train/step.py: K2 forward and backward in every epilogue, guarded Adam),
+log every `log_every` steps, and print the reference's per-epoch lines.
+
+  python -m zeroshotvideoclassification_tpu_torch.cli.main \
+      --dataset synthetic --class_total 8 --train_samples 64 \
+      --n_epochs 2 --bs 8 --network r2plus1d_18 --device cuda
+
+The flags are the JAX trainer's (config.build_arg_parser, the same Config)
+plus --device, which defaults to cuda; asking for cuda without a GPU raises.
+What the port does not do yet raises NotImplementedError, naming its ROADMAP
+item, when it is asked for: --evaluate (P5), --resume / --weights / a
+pretrained asset / --checkpoint_every / --profile_dir (P6), --tp > 1 (P7),
+--head linear / --clip_pool embedding / --fixconvs / --remat / c3d (P8),
+the still-image datasets (P9), and --steps_per_call > 1 / --save_samples /
+--debug_nans (P11). The per-epoch zero-shot evaluation of the test tables
+(P5) and the best-accuracy checkpoint (P6) are not run either; every epoch
+says so.
+"""
+
+from __future__ import annotations
+
+import argparse
+import os
+import sys
+import time
+from typing import Dict, List
+
+import numpy as np
+import torch
+
+from zeroshotvideoclassification_tpu_torch.cli.infer import resolve_device
+from zeroshotvideoclassification_tpu_torch.config import (
+    Config,
+    build_arg_parser as build_config_parser,
+    config_from_namespace,
+    torch_dtype,
+    transform_dtype,
+)
+from zeroshotvideoclassification_tpu_torch.data.datasets import (
+    VideoTable,
+    build_datasets,
+)
+from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+    HostPipeline,
+    device_batch,
+)
+from zeroshotvideoclassification_tpu_torch.models import get_network
+from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
+from zeroshotvideoclassification_tpu_torch.train import (
+    make_optimizer,
+    make_train_step,
+    multistep_lr,
+    set_lr,
+)
+from zeroshotvideoclassification_tpu_torch.utils.logging import (
+    MetricsLogger,
+    Timer,
+    colored,
+)
+
+
+def check_ported(config: Config) -> None:
+    """Raise NotImplementedError for every request the port cannot honour
+    yet, naming the ROADMAP item that will."""
+    asked = [
+        (config.evaluate, "--evaluate (zero-shot evaluation)", "P5"),
+        (config.resume, "--resume", "P6"),
+        (config.weights and config.weights != "none",
+         "--weights (warm start)", "P6"),
+        (config.checkpoint_every, "--checkpoint_every", "P6"),
+        (config.tp > 1, "--tp > 1", "P7"),
+        ("c3d" in config.network, f"--network {config.network}", "P8"),
+        (config.head != "mlp", f"--head {config.head}", "P8"),
+        (str(config.clip_pool) != "feature",
+         f"--clip_pool {config.clip_pool}", "P8"),
+        (config.fixconvs, "--fixconvs", "P8"),
+        (config.remat, "--remat", "P8"),
+        ("image" in config.dataset or "sun" in config.dataset,
+         f"--dataset {config.dataset} (still images)", "P9"),
+        (config.steps_per_call > 1, "--steps_per_call > 1", "P11"),
+        (config.save_samples, "--save_samples", "P11"),
+        (config.debug_nans, "--debug_nans", "P11"),
+        (config.profile_dir, "--profile_dir", "P6"),
+    ]
+    for wanted, what, item in asked:
+        if wanted:
+            raise NotImplementedError(
+                f"{what} is not ported yet (ROADMAP {item})")
+    if not config.nopretrained:
+        for ext in ("npz", "pth", "pth.tar"):
+            path = os.path.join(config.pretrained_dir,
+                                f"{config.network}.{ext}")
+            if os.path.exists(path):
+                raise NotImplementedError(
+                    f"loading the pretrained asset {path} is not ported yet "
+                    f"(ROADMAP P6); pass --nopretrained to train from a "
+                    f"random init")
+
+
+class Experiment:
+    """Bundles model, optimizer, step and logging for one training run."""
+
+    def __init__(self, config: Config,
+                 datasets: Dict[str, List[VideoTable]], device="cuda"):
+        check_ported(config)
+        self.config = config
+        self.datasets = datasets
+        self.device = resolve_device(device)
+        # full float32 where float32 is asked for, and cuDNN timing its
+        # algorithms per conv shape, as cli/infer.build_scoring_state
+        torch.backends.cudnn.allow_tf32 = False
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.benchmark = True
+        self.global_bs = config.bs  # one device
+        train_tables = datasets.get("training") or []
+        if train_tables and train_tables[0].loader == "image":
+            raise NotImplementedError(
+                "still-image training tables are not ported yet (ROADMAP P9)")
+        self.model = get_network(config)
+        init_weights(self.model, torch.Generator().manual_seed(config.seed))
+        self.model = self.model.to(device=self.device,
+                                   memory_format=torch.channels_last_3d)
+        self.optimizer = make_optimizer(self.model.parameters(), config.lr)
+        self.lr_at = multistep_lr(config.lr, config.n_epochs)
+        self.dtype = torch_dtype(config.compute_dtype)
+        self.train_step = make_train_step(self.model, self.optimizer,
+                                          compute_dtype=self.dtype)
+        self.start_epoch = 0
+        if not config.nopretrained:
+            print(f"WARNING: no pretrained asset for {config.network!r} "
+                  f"under {config.pretrained_dir!r} — training from random "
+                  f"init (pass --nopretrained to silence this)")
+        # de-dup the experiment dir with a _N suffix (reference/main.py:94-97)
+        base = config.savename(1)
+        self.savename, count = base, 1
+        while os.path.exists(self.savename):
+            self.savename = base + f"_{count}"
+            count += 1
+        os.makedirs(self.savename, exist_ok=True)
+        self.log = MetricsLogger(self.savename)
+        self.best_acc = None  # set by the zero-shot evaluation (ROADMAP P5)
+
+    # ------------------------------------------------------------- train ----
+    def train_one_epoch(self, epoch: int) -> Dict[str, float]:
+        cfg = self.config
+        table = self.datasets["training"][0]
+        global_bs = self.global_bs
+        pipe = HostPipeline(table, cfg, global_bs, seed=cfg.seed + epoch)
+        class_embed = torch.from_numpy(
+            np.asarray(table.class_embed, np.float32)).to(self.device)
+        set_lr(self.optimizer, self.lr_at(epoch))
+
+        batch_t, model_t = Timer(), Timer()
+        losses, accs = [], []
+        rng = torch.Generator().manual_seed((cfg.seed << 16) + epoch)
+        it = iter(pipe)
+        if cfg.progressbar:
+            try:
+                from tqdm import tqdm
+
+                it = iter(tqdm(pipe, total=len(pipe),
+                               desc=f"Epoch {epoch} Training..."))
+            except ImportError:
+                pass
+        i = 0
+        last_logged = 0
+
+        def maybe_log():
+            nonlocal last_logged
+            if len(losses) - last_logged >= cfg.log_every:
+                step = self.train_step.state.step
+                self.log.scalar("Train/Loss", float(losses[-1]), step)
+                # tag parity with main_02.py:338 (there embed_loss == loss)
+                self.log.scalar("Train/EmbeddingLoss", float(losses[-1]),
+                                step)
+                self.log.scalar("Train/RegressorAccuracy", float(accs[-1]),
+                                step)
+                last_logged = len(losses)
+
+        while True:
+            with batch_t:
+                host = next(it, None)
+            if host is None:
+                break
+            with model_t:
+                batch = device_batch(host, table.n_clips, cfg.clip_len,
+                                     transform_dtype(cfg), self.device)
+                metrics = self.train_step(
+                    batch["x"], batch["z"], batch["label"], batch["weight"],
+                    class_embed, rng)
+                losses.append(metrics["loss"])
+                accs.append(metrics["train_accuracy"])
+            maybe_log()
+            i += 1
+            if i * global_bs > cfg.epoch_sample_cap:  # reference/main.py:208
+                break
+        maybe_log()
+        with model_t:  # the device's queue drains inside the model's time
+            loss = float(torch.stack(losses).mean()) if losses else 0.0
+            acc = float(torch.stack(accs).mean()) if accs else 0.0
+        clips = i * global_bs * table.n_clips
+        total_t = batch_t.total + model_t.total
+        print(colored(f"Train Accuracy: regressor {acc:2.1f}%", "red"))
+        print(
+            "TOTAL time for: load the batch %.2f sec, run the model %.2f sec, "
+            "train %.2f min | %.1f clips/sec"
+            % (batch_t.total, model_t.total, total_t / 60,
+               clips / max(total_t, 1e-9)))
+        return {"loss": loss, "train_accuracy": acc,
+                "clips_per_sec": clips / max(total_t, 1e-9)}
+
+    # --------------------------------------------------------------- loop ---
+    def run(self) -> Dict[str, float]:
+        cfg = self.config
+        trainsamples = (len(self.datasets["training"][0])
+                        if self.datasets["training"] else 0)
+        if self.datasets["training"]:
+            # run-config stamp file (reference/main.py:333-335)
+            n_classes = len(self.datasets["training"][0].classes)
+            stamp = os.path.join(
+                self.savename, f"train_samples_{n_classes}_{trainsamples}.txt")
+            with open(stamp, "w") as f:
+                f.write(f"{n_classes}, {trainsamples}\n")
+        summary = {}
+        for epoch in range(self.start_epoch, cfg.n_epochs):
+            print(f"\n{cfg.network.upper()} {cfg.dataset.upper()} "
+                  f"LR {self.lr_at(epoch)} BS {self.global_bs} "
+                  f"CLIP_LEN {cfg.clip_len} N_CLIPS {cfg.n_clips} "
+                  f"OVERLAP {cfg.class_overlap} SAMPLES {trainsamples}")
+            t0 = time.time()
+            if self.datasets["training"]:
+                summary.update(self.train_one_epoch(epoch))
+            names = [t.name for t in self.datasets["testing"]]
+            if names:
+                print(f"NOT EVALUATED: zero-shot evaluation of {names} and "
+                      f"the best-accuracy checkpoint are not ported yet "
+                      f"(ROADMAP P5, P6)", file=sys.stderr)
+            best = ("n/a (not evaluated)" if self.best_acc is None
+                    else "%.1f" % self.best_acc)
+            print("----- Epoch %d done in %.2f min. Best accuracy %s"
+                  % (epoch, (time.time() - t0) / 60, best))
+        summary["best_accuracy"] = self.best_acc
+        self.log.close()
+        return summary
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = build_config_parser()
+    p.add_argument("--device", default="cuda",
+                   help="torch device (cuda, cuda:1, cpu); cuda without a "
+                        "GPU is an error")
+    return p
+
+
+def main(argv=None):
+    args = build_arg_parser().parse_args(argv)
+    config = config_from_namespace(args)
+    check_ported(config)
+    resolve_device(args.device)
+    wv_model = None
+    if "synthetic" not in config.dataset:
+        from zeroshotvideoclassification_tpu_torch.text import load_word2vec
+
+        wv_model = load_word2vec(config.word2vec_path, config.word2vec_cache)
+    datasets = build_datasets(config, wv_model)
+    exp = Experiment(config, datasets, device=args.device)
+    return exp.run()
+
+
+if __name__ == "__main__":
+    main()

@@ -1,18 +1,324 @@
-"""The configuration, and dtype names of Config -> torch.
+"""Typed experiment configuration with CLI parity to the reference, and the
+lookup from Config's dtype names to torch dtypes.
 
-The port uses the JAX package's Config as it is (that module imports no
-JAX) and re-exports it here; only the lookup from a dtype name to a
-framework dtype is framework-specific (JAX counterpart:
-config.compute_jnp_dtype and data/pipeline.transform_out_dtype).
+Copy of zeroshotvideoclassification_tpu/config.py (Config, build_arg_parser,
+config_from_args: the same fields, defaults and flags, so scripts and stored
+config_json cross between the packages). The reference threads a mutated
+argparse namespace everywhere (reference/main.py:22-58); here the config is
+a frozen dataclass with the same user-facing knobs plus the accelerator
+fields. Fields that exist only to tune the TPU build (mesh_shape, tp, remat,
+steps_per_call, ...) are kept so that the two parsers accept the same
+flags; the port's entry points raise on the ones they do not honour yet.
+Only torch_dtype / transform_dtype are framework-specific (JAX
+counterparts: config.compute_jnp_dtype, data/pipeline.transform_out_dtype).
 """
 
 from __future__ import annotations
 
+import argparse
+import dataclasses
+import json
+import os
+from typing import Optional, Tuple
+
 import torch
 
-from zeroshotvideoclassification_tpu.config import Config
 
-__all__ = ["Config", "torch_dtype", "transform_dtype"]
+@dataclasses.dataclass(frozen=True)
+class Config:
+    # ---- data / task (reference main.py:24-33) ----
+    split: int = -1               # -1 => 10-seeded-half-split eval protocol;
+                                  # >= 0 only tags the savename (split%d), the
+                                  # reference's exact semantics (its split>=0
+                                  # path also trains on the full class set and
+                                  # merely names the run, main.py:85,284)
+    dataset: str = "kinetics2oboth"
+    train_samples: int = -1       # linspace-subsample train set (debugging)
+    class_total: int = -1         # linspace-subsample train classes (debugging)
+    clip_len: int = 16            # frames per clip
+    n_clips: int = 1              # clips per video (train)
+    class_overlap: float = 0.040  # tau, Eq.3: drop train classes too close to test
+
+    # ---- optimization (reference main.py:36-42) ----
+    lr: float = 1e-3
+    n_epochs: int = 150
+    # Parity: 64 IS the reference CLI default (reference/main.py:38);
+    # the paper-producing bs 22 lives only in its run.sh preset, which our
+    # run.sh keeps. Larger batches amortize host-side packing and H2D
+    # dispatch.
+    bs: int = 64                  # per-replica batch size; global = bs * n_data_shards
+    size: int = 112               # crop size
+    fixconvs: bool = False        # freeze backbone (stop_gradient)
+    nopretrained: bool = False    # True => random init (reference quirk #3 made real)
+    sun_antialias: bool = True    # SUN camera-motion crop resize: True =
+                                  # PIL-parity antialiased triangle filter
+                                  # (the reference's torchvision Resize on
+                                  # PIL images, auxiliary_stillimages.py:
+                                  # 56-62,130-134); False = plain 2-tap
+                                  # half-pixel bilinear (rounds 1-4 behavior)
+
+    # ---- network (reference main.py:45-46) ----
+    network: str = "r2plus1d_18"  # r2plus1d_18 | r3d_18 | mc3_18 | c3d | resnet18
+    head: str = "mlp"             # 'mlp' = active fork head (network.py:517,595-600)
+                                  # 'linear' = upstream paper head (network.py:50-80)
+    clip_pool: str = "feature"    # multi-clip pooling: 'feature' = clip-mean
+                                  # before the head (upstream, network.py:76);
+                                  # 'embedding' = fork-exact per-clip head
+                                  # (network.py:595-600). Identical at n_clips=1.
+
+    # ---- paths / run management (reference main.py:49-52) ----
+    save_path: str = "./experiments"
+    weights: Optional[str] = None
+    progressbar: bool = True
+    evaluate: bool = False        # eval-only mode (25 clips/video)
+    resume: Optional[str] = None  # full-state resume (params+opt+step+epoch);
+                                  # the reference could only warm-start weights.
+                                  # 'auto' = resume the newest last.npz /
+                                  # checkpoint.npz under this run's savename
+                                  # (preemption recovery; fresh run if none)
+    checkpoint_every: int = 0     # write <run>/last.npz every N epochs
+                                  # (independent of the best-by-accuracy
+                                  # checkpoint; 0 = off). Production jobs
+                                  # are preemptible; best-only checkpointing
+                                  # (the reference's policy) loses all
+                                  # progress between accuracy improvements
+    debug_nans: bool = False      # NaN-debugging mode (GradScaler-analog
+                                  # diagnostics; see SURVEY §5)
+
+    # ---- accelerator knobs (no reference equivalent) ----
+    compute_dtype: str = "bfloat16"   # conv/matmul compute dtype; params stay fp32
+    transform_dtype: str = "auto"     # fused-transform output dtype:
+                                      # auto = follow compute_dtype. bf16 out
+                                      # is BIT-IDENTICAL under bf16 compute
+                                      # (the stem conv casts x to the compute
+                                      # dtype anyway — only WHERE the rounding
+                                      # happens moves) and halves the
+                                      # transform's HBM write + the stem's
+                                      # activation read (VERDICT r3 weak #2)
+    mesh_shape: Tuple[int, ...] = (-1,)   # -1 = all devices on the 'data' axis
+    mesh_axes: Tuple[str, ...] = ("data",)
+    tp: int = 1                       # tensor-parallel degree: --tp N builds
+                                      # a (data=-1, model=N) mesh and shards
+                                      # the head MLP (fc1 col / fc2 row)
+                                      # over 'model'; 1 = pure DP
+    seed: int = 0
+    data_root: str = "/mnt/hdd1"      # dataset root (reference hardcodes this)
+    pretrained_dir: str = "./assets/pretrained"  # ported pretrained weights
+                                      # (auto-loaded unless --nopretrained)
+    word2vec_path: str = "./assets/GoogleNews-vectors-negative300.bin"
+    word2vec_cache: str = "./assets/word2vec_cache.npz"
+    prefetch_depth: int = 2           # host->device pipeline depth
+    steps_per_call: int = 1           # train steps fused into one dispatch
+                                      # (lax.scan over stacked batches)
+    remat: object = False             # checkpoint the backbone blocks.
+                                      # True/"full": recompute everything in
+                                      # backward (bigger per-chip batches for
+                                      # ~1/3 more conv FLOPs). "convs": save
+                                      # conv outputs only, recompute BN/ReLU
+                                      # (no extra conv FLOPs, less saved-
+                                      # activation HBM traffic)
+    decode_workers: int = 0           # 0 = os.cpu_count()
+    decode_scale: int = 1             # max libjpeg DCT-scale denominator for
+                                      # frame-dir decode (1/2/4/8). >1 decodes
+                                      # oversized JPEGs directly at reduced
+                                      # size when the scaled short side still
+                                      # covers the resize target — ~4x less
+                                      # host IDCT work + 4x fewer H2D bytes
+                                      # per halving. 1 (default) = bit-exact
+                                      # reference decode parity
+    canvas_hw: Tuple[int, int] = (256, 342)  # host uint8 canvas (static shape)
+    h2d_window: bool = True           # ship only the crop's source window of
+                                      # the canvas to the device (static
+                                      # worst-case size, per-sample offset):
+                                      # cuts ~40% of H2D bytes at the default
+                                      # shapes with identical outputs
+                                      # (tests/test_pipeline.py equivalence)
+    epoch_sample_cap: int = 100_000   # reference caps train epoch (main.py:208)
+    eval_n_clips_both: int = 4        # dataset.py:134: max(2*2, n_clips) under
+                                      # --evaluate on the 'both' route
+    eval_n_clips_others: int = 25     # dataset.py:75: max(5*5, n_clips) under
+                                      # --evaluate on the kinetics2others route
+    eval_clip_budget: int = 128       # min CLIPS per device per eval dispatch
+                                      # (the serving forward amortizes with
+                                      # batch; numerics are per-sample so
+                                      # only padding changes)
+    log_every: int = 10
+    # NOTE: BN statistics/normalization are ALWAYS fp32 (models/layers.py) —
+    # the AMP-parity requirement, not a knob; a former keep_bn_fp32 field
+    # was dead and removed (from_json drops unknown keys for old configs)
+    save_samples: bool = False        # dump one input clip as GIF per epoch
+                                      # (the reference had this commented out,
+                                      # main.py:159-163)
+    profile_dir: str = ""             # if set, profiler-trace the first
+                                      # trained epoch into this dir (replaces
+                                      # the reference's wall-clock-only
+                                      # accounting, main.py:216-218)
+
+    # ------------------------------------------------------------------
+    @property
+    def multiple_clips(self) -> bool:
+        return False  # parity: reference main.py:57
+
+    @property
+    def eval_n_clips(self) -> int:
+        """Eval clips/video, matching the reference's ACTIVE routes: during
+        training, validation uses opt.n_clips (dataset.py:75,134 when not
+        opt.evaluate); under --evaluate it is max(4, n_clips) on the 'both'
+        route and max(25, n_clips) on the 'others' route."""
+        if not self.evaluate:
+            return self.n_clips
+        n = (self.eval_n_clips_others if "other" in self.dataset
+             else self.eval_n_clips_both)
+        return max(n, self.n_clips)
+
+    def savename(self, n_devices: int = 1) -> str:
+        """Experiment dir naming, parity with reference/main.py:72-104."""
+        global_bs = self.bs * max(1, n_devices)
+        name = os.path.join(self.save_path, self.dataset)
+        name = os.path.join(
+            name,
+            "CLIP%d_LR%f_%s_BS%d" % (self.clip_len, self.lr, self.network, global_bs),
+        )
+        if self.class_overlap > 0:
+            name += "_CLASSOVERLAP%.2f" % self.class_overlap
+        if self.class_total != -1:
+            name += "_NCLASS%d" % self.class_total
+        if self.train_samples != -1:
+            name += "_NTRAIN%d" % self.train_samples
+        if self.fixconvs:
+            name += "_FixedConvs"
+        if self.nopretrained:
+            name += "_NotPretrained"
+        if self.split != -1:
+            name = os.path.join(name, "split%d" % self.split)
+        return name
+
+    def replace(self, **kw) -> "Config":
+        return dataclasses.replace(self, **kw)
+
+    def to_json(self) -> str:
+        return json.dumps(dataclasses.asdict(self), indent=2, default=str)
+
+    @staticmethod
+    def from_json(s: str) -> "Config":
+        d = json.loads(s)
+        for k in ("mesh_shape", "mesh_axes", "canvas_hw"):
+            if k in d and isinstance(d[k], list):
+                d[k] = tuple(d[k])
+        # drop unknown keys: checkpoints carry the writer's config_json, and
+        # a newer/older framework must still parse it (e.g. the removed
+        # keep_bn_fp32 field)
+        known = {f.name for f in dataclasses.fields(Config)}
+        return Config(**{k: v for k, v in d.items() if k in known})
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    """CLI with the exact flags of reference/main.py:22-55 plus the accelerator extras."""
+    p = argparse.ArgumentParser(description="Zero-shot video classification (PyTorch port)")
+    d = Config()
+    p.add_argument("--split", default=d.split, type=int)
+    p.add_argument("--dataset", default=d.dataset, type=str,
+                   help="kinetics2oboth | kinetics2others | sun2both | image | synthetic")
+    p.add_argument("--train_samples", default=d.train_samples, type=int)
+    p.add_argument("--class_total", default=d.class_total, type=int)
+    p.add_argument("--clip_len", default=d.clip_len, type=int)
+    p.add_argument("--n_clips", default=d.n_clips, type=int)
+    p.add_argument("--class_overlap", default=d.class_overlap, type=float)
+    p.add_argument("--lr", default=d.lr, type=float)
+    p.add_argument("--n_epochs", default=d.n_epochs, type=int)
+    p.add_argument("--bs", default=d.bs, type=int)
+    p.add_argument("--size", default=d.size, type=int)
+    p.add_argument("--fixconvs", action="store_true", default=False)
+    # NOTE: the reference's --nopretrained used action='store_false' so it could
+    # never become True (quirk #3, main.py:42); here it is a real boolean.
+    p.add_argument("--nopretrained", action="store_true", default=False)
+    p.add_argument("--network", default=d.network, type=str)
+    p.add_argument("--head", default=d.head, type=str, choices=["mlp", "linear"])
+    p.add_argument("--clip_pool", default=d.clip_pool, type=str,
+                   choices=["feature", "embedding"])
+    p.add_argument("--save_path", default=d.save_path, type=str)
+    p.add_argument("--weights", default=None, type=str)
+    # real on/off (--progressbar / --no-progressbar), default on; the
+    # reference's was opt-in (main.py:49) but a default=True store_true could
+    # never be disabled
+    p.add_argument("--progressbar", action=argparse.BooleanOptionalAction,
+                   default=True)
+    p.add_argument("--evaluate", action="store_true", default=False)
+    p.add_argument("--resume", default=None, type=str,
+                   help="checkpoint.npz to fully resume from (opt state, "
+                        "step and epoch included), or 'auto' to pick up the "
+                        "newest checkpoint under this run's savename")
+    p.add_argument("--checkpoint_every", default=d.checkpoint_every, type=int,
+                   help="write <run>/last.npz every N epochs (preemption "
+                        "recovery; 0 = best-by-accuracy only)")
+    p.add_argument("--debug_nans", action="store_true", default=False)
+    p.add_argument("--sun_antialias", action=argparse.BooleanOptionalAction,
+                   default=True,
+                   help="SUN still-image crop resize: PIL-parity antialiased "
+                        "(default) vs plain bilinear (--no-sun_antialias)")
+    # accelerator extras
+    p.add_argument("--compute_dtype", default=d.compute_dtype, type=str)
+    p.add_argument("--transform_dtype", default=d.transform_dtype, type=str,
+                   choices=["auto", "float32", "bfloat16"])
+    p.add_argument("--seed", default=d.seed, type=int)
+    p.add_argument("--data_root", default=d.data_root, type=str)
+    p.add_argument("--pretrained_dir", default=d.pretrained_dir, type=str)
+    p.add_argument("--word2vec_path", default=d.word2vec_path, type=str)
+    p.add_argument("--decode_workers", default=d.decode_workers, type=int)
+    p.add_argument("--decode_scale", default=d.decode_scale, type=int,
+                   choices=[1, 2, 4, 8],
+                   help="max libjpeg DCT-scale denominator for frame-dir "
+                        "decode: oversized JPEGs decode directly at reduced "
+                        "size when the scaled short side still covers the "
+                        "resize target (throughput lever; 1 = exact "
+                        "reference decode parity; pair with --canvas_hw "
+                        "128 171 to also shrink the H2D window ~3.9x — "
+                        "docs/TUNING.md)")
+    p.add_argument("--prefetch_depth", default=d.prefetch_depth, type=int,
+                   help="host->device pipeline depth (decoded batches "
+                        "buffered ahead of the training step)")
+    p.add_argument("--canvas_hw", nargs=2, type=int, metavar=("H", "W"),
+                   default=list(d.canvas_hw),
+                   help="host uint8 canvas (static decode shape) — frames "
+                        "are letterboxed onto this before the on-device "
+                        "resample; default matches the reference's 256x342 "
+                        "resize target")
+    p.add_argument("--h2d_window", action=argparse.BooleanOptionalAction,
+                   default=d.h2d_window,
+                   help="ship only the crop-referenced canvas window to the "
+                        "device (static shape, ~40%% fewer H2D bytes; "
+                        "--no-h2d_window restores the full canvas)")
+    p.add_argument("--steps_per_call", default=d.steps_per_call, type=int)
+    p.add_argument("--remat", nargs="?", const="full", default=False,
+                   choices=["full", "convs"])
+    p.add_argument("--save_samples", action="store_true", default=False)
+    p.add_argument("--profile_dir", default=d.profile_dir, type=str)
+    p.add_argument("--tp", default=d.tp, type=int,
+                   help="tensor-parallel degree: shard the head MLP over a "
+                        "'model' mesh axis of this size (1 = pure DP)")
+    p.add_argument("--eval_clip_budget", default=d.eval_clip_budget, type=int,
+                   help="min clips per device per eval dispatch (serving "
+                        "amortizes with batch; 0 = reference batch sizing)")
+    return p
+
+
+def config_from_args(argv=None) -> Config:
+    return config_from_namespace(build_arg_parser().parse_args(argv))
+
+
+def config_from_namespace(ns: argparse.Namespace) -> Config:
+    """The parsed flags -> Config (flags that are no Config field, such as
+    an entry point's --device, are ignored)."""
+    fields = {f.name for f in dataclasses.fields(Config)}
+    kw = {k: v for k, v in vars(ns).items() if k in fields}
+    if isinstance(kw.get("canvas_hw"), list):  # nargs=2 parses to a list
+        kw["canvas_hw"] = tuple(kw["canvas_hw"])
+    cfg = Config(**kw)
+    if cfg.tp > 1 and "model" not in cfg.mesh_axes:
+        cfg = cfg.replace(mesh_shape=(-1, cfg.tp),
+                          mesh_axes=("data", "model"))
+    return cfg
+
 
 _DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32}
 

@@ -1,5 +1,5 @@
 """Model layer: video ResNets and the zero-shot head as nn.Modules, and the
-weight bridge from the JAX package's pytrees."""
+weight bridge to and from the JAX package's pytrees."""
 
 from zeroshotvideoclassification_tpu_torch.models.heads import (
     ZeroShotModel,

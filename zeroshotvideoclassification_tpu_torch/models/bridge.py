@@ -1,4 +1,4 @@
-"""Weights across the frameworks: JAX pytrees -> the port's state_dict.
+"""Weights across the frameworks: JAX pytrees <-> the port's state_dict.
 
 from_jax(params, model_state) turns the JAX package's ZeroShotModel trees
 (nested dicts of numpy arrays, as ZeroShotModel.init returns them or a
@@ -11,6 +11,11 @@ checkpoint stores them) into a state_dict for models.heads.ZeroShotModel:
 
 It is the inverse of zeroshotvideoclassification_tpu/models/porting.py:
 _port_reference_sd: from_jax then _port_reference_sd gives back the trees.
+to_jax(state_dict) is the way back, (params, model_state) as nested dicts of
+numpy arrays, so that parameters and BN statistics after some training steps
+can be compared leaf by leaf. adam_from_jax / adam_to_jax carry Adam's
+moments and count across (optax's mu / nu / count <-> exp_avg / exp_avg_sq /
+step of train/optimizer.GuardedAdam), in the same layouts as the parameters.
 Only numpy and torch are needed.
 """
 
@@ -94,3 +99,85 @@ def from_jax(params, model_state) -> "OrderedDict":
     """JAX (params, model_state) trees -> the port's state_dict (CPU,
     float32)."""
     return from_flat(flatten(params), flatten(model_state))
+
+
+_STEM_INV = {v: k for k, v in _STEM.items()}
+_BLOCK_INV = {v: k for k, v in _BLOCK.items()}
+_HEAD_INV = {v: k for k, v in _HEAD.items()}
+
+
+def jax_path(key: str):
+    """'model.layer1.0.conv1.0.0.weight' -> ('params',
+    'backbone/layer1_0/conv1/conv_s/w'): the inverse of torch_key, with the
+    tree ('params' or 'model_state') the leaf lives in; None for
+    num_batches_tracked, which JAX does not keep."""
+    mod, _, leaf = key.rpartition(".")
+    if leaf == "num_batches_tracked":
+        return None
+    try:
+        if mod in _HEAD_INV:
+            return "params", f"head/{_HEAD_INV[mod]}/{'w' if leaf == 'weight' else 'b'}"
+        parts = mod.split(".")
+        if parts[0] == "model":
+            if parts[1] == "stem":
+                sub, where = _STEM_INV[parts[2]], "backbone/stem"
+            else:
+                sub = _BLOCK_INV[".".join(parts[3:])]
+                where = f"backbone/{parts[1]}_{parts[2]}"
+            if sub.rpartition("/")[2].startswith("bn"):
+                tree, name = {
+                    "weight": ("params", "scale"), "bias": ("params", "bias"),
+                    "running_mean": ("model_state", "mean"),
+                    "running_var": ("model_state", "var")}[leaf]
+            else:
+                tree, name = "params", {"weight": "w"}[leaf]
+            return tree, f"{where}/{sub}/{name}"
+    except (KeyError, IndexError):
+        pass
+    raise ValueError(f"no counterpart in the JAX package for {key!r}")
+
+
+def to_jax(state_dict):
+    """The port's state_dict -> (params, model_state) nested dicts of float32
+    numpy arrays in the JAX package's layouts (conv OIDHW -> DHWIO, linear
+    [out, in] -> [in, out])."""
+    trees = {"params": {}, "model_state": {}}
+    for key, t in state_dict.items():
+        found = jax_path(key)
+        if found is None:
+            continue
+        tree, path = found
+        a = t.detach().float().cpu().numpy()
+        if path.endswith("/w"):
+            a = a.transpose(2, 3, 4, 1, 0) if a.ndim == 5 else a.T
+        node = trees[tree]
+        *dirs, name = path.split("/")
+        for d in dirs:
+            node = node.setdefault(d, {})
+        node[name] = np.ascontiguousarray(a)
+    return trees["params"], trees["model_state"]
+
+
+def adam_from_jax(model, optimizer, mu, nu, count: int) -> None:
+    """Load optax Adam moments (trees shaped like the JAX params) and its
+    count into `optimizer`, whose parameters are `model`'s."""
+    m_sd = from_flat(flatten(mu), {})
+    v_sd = from_flat(flatten(nu), {})
+    with torch.no_grad():
+        optimizer.count.fill_(int(count))
+        for key, p in model.named_parameters():
+            st = optimizer.state[p]
+            st["step"] = optimizer.count
+            st["exp_avg"] = m_sd[key].to(p.device)
+            st["exp_avg_sq"] = v_sd[key].to(p.device)
+
+
+def adam_to_jax(model, optimizer):
+    """-> (mu, nu, count): `optimizer`'s moments as trees in the JAX
+    package's layouts, and its step count."""
+    named = dict(model.named_parameters())
+    mu, _ = to_jax({k: optimizer.state[p]["exp_avg"]
+                    for k, p in named.items()})
+    nu, _ = to_jax({k: optimizer.state[p]["exp_avg_sq"]
+                    for k, p in named.items()})
+    return mu, nu, int(optimizer.count)

@@ -7,7 +7,8 @@ all in float32. Key names follow the reference fork (network.py:481,517):
 the backbone under `model.`, the head under `output2emb_proj.layers.{0,1}`,
 so a reference checkpoint and the bridge from JAX pytrees line up with
 state_dict() key for key. The 'linear' and C3D heads, clip_pool='embedding',
-fixconvs and dropout are not ported yet.
+fixconvs and dropout are not ported yet (dropout is 0 on the ported
+paths).
 """
 
 from __future__ import annotations
@@ -47,13 +48,19 @@ class ZeroShotModel(nn.Module):
                                     backbone.feature_dim, EMBED_DIM))
         self.compute_dtype = torch.float32
 
-    def set_compute_dtype(self, dtype: torch.dtype) -> "ZeroShotModel":
+    def set_compute_dtype(self, dtype: torch.dtype,
+                          masters: bool = False) -> "ZeroShotModel":
         """Convs (weights and input) run in `dtype`; BN parameters, the head
-        and every reduction stay float32 — the JAX package's casts, done
-        once on the weights instead of at every call."""
+        and every reduction stay float32 — the JAX package's casts.
+
+        Serving (masters=False) casts the conv weights once, in place.
+        Training (masters=True) keeps them float32 and each conv casts a
+        copy at every call (layers.Conv3d), so gradients and optimizer
+        state are float32 (the JAX package's params, layers.py:66-67)."""
         for m in self.model.modules():
-            if isinstance(m, nn.Conv3d):
-                m.to(dtype)
+            if isinstance(m, L.Conv3d):
+                m.compute_dtype = dtype if masters else None
+                m.to(torch.float32 if masters else dtype)
         self.compute_dtype = dtype
         return self
 

@@ -1,5 +1,5 @@
-"""Building blocks: conv3d, eval-mode BatchNorm with the fused epilogue,
-float32 linear and pooling.
+"""Building blocks: conv3d, BatchNorm (batch or running statistics) with the
+fused epilogue, float32 linear and pooling.
 
 Counterpart of zeroshotvideoclassification_tpu/models/layers.py. The JAX
 package keeps activations as [N, T, H, W, C] arrays; here they are
@@ -7,12 +7,16 @@ package keeps activations as [N, T, H, W, C] arrays; here they are
 so cuDNN convolves them as XLA did and the BN epilogue (K2) sees a
 contiguous [N, T, H, W, C] view.
 
-  * conv3d: bias-free nn.Conv3d; weights are OIDHW (torch's layout; the
-    bridge transposes the JAX package's DHWIO).
-  * BatchNorm3d: eval mode only. Its forward is batchnorm_relu, the single
-    entry point of every epilogue, like layers.py:248-287. Train-mode
-    statistics (layers.py:199-225) are not ported yet: in train mode it
-    raises.
+  * conv3d: a bias-free Conv3d; weights are OIDHW (torch's layout; the
+    bridge transposes the JAX package's DHWIO). With `compute_dtype` set,
+    the float32 weight (the master) and the input are cast at every call,
+    as layers.py:66-67, so gradients and optimizer state stay float32.
+  * BatchNorm3d: its forward is batchnorm_relu, the single entry point of
+    every epilogue, like layers.py:248-287. In train mode the statistics
+    are bn_statistics (layers.py:199-225: one pass, shifted by the running
+    mean, in float32, through autograd) and the running statistics move; in
+    eval mode they are the running statistics. Either way the apply is K2
+    (ops/bn_cuda.bn_apply_relu) with mean and var as differentiable inputs.
   * linear, global_avgpool and l2_normalize compute in float32
     (layers.py:292-336).
 """
@@ -28,9 +32,48 @@ from torch import nn
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import bn_apply_relu
 
 
-def conv3d(cin: int, cout: int, kernel, stride=1, padding=0) -> nn.Conv3d:
-    return nn.Conv3d(cin, cout, kernel, stride=stride, padding=padding,
-                     bias=False)
+class Conv3d(nn.Conv3d):
+    """nn.Conv3d that, when `compute_dtype` is set, keeps its weight as it
+    is stored (float32) and convolves a cast copy of it with the cast
+    input."""
+
+    compute_dtype: Optional[torch.dtype] = None
+
+    def forward(self, x):
+        dt = self.compute_dtype
+        if dt is None or dt == self.weight.dtype:
+            return super().forward(x)
+        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+
+
+def conv3d(cin: int, cout: int, kernel, stride=1, padding=0) -> Conv3d:
+    return Conv3d(cin, cout, kernel, stride=stride, padding=padding,
+                  bias=False)
+
+
+def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
+                  running_var: torch.Tensor, momentum: float = 0.1):
+    """Batch statistics of a [..., C] tensor -> (mean, var, new_mean,
+    new_var), all float32 [C]; the train half of layers.py:199-225.
+
+    One-pass statistics of s = x - running_mean: mean = E[s] + m0 and
+    var = max(E[s^2] - E[s]^2, 0) (biased; it normalises). Shifting by the
+    running mean keeps E[s^2] - E[s]^2 from cancelling on activations with a
+    large offset. mean and var are differentiable in x; new_mean / new_var
+    are what the running statistics become ((1 - momentum) * old + momentum
+    * new, with the UNBIASED variance count / (count - 1)), detached."""
+    dims = tuple(range(x.dim() - 1))
+    m0 = running_mean.detach()
+    s = x - m0  # float32 by promotion: no float copy of x on its own
+    s_mean = s.mean(dims)
+    s_sq = torch.square(s).mean(dims)
+    mean = s_mean + m0
+    var = torch.clamp_min(s_sq - s_mean * s_mean, 0.0)
+    count = float(math.prod(x.shape[:-1]))
+    unbiased = var.detach() * (count / max(count - 1.0, 1.0))
+    new_mean = (1 - momentum) * m0 + momentum * mean.detach()
+    new_var = (1 - momentum) * running_var.detach() + momentum * unbiased
+    return mean, var, new_mean, new_var
 
 
 def batchnorm_relu(x: torch.Tensor, weight, bias, running_mean, running_var,
@@ -47,15 +90,26 @@ def batchnorm_relu(x: torch.Tensor, weight, bias, running_mean, running_var,
 
 class BatchNorm3d(nn.BatchNorm3d):
     """nn.BatchNorm3d (same parameters, buffers and state_dict keys) whose
-    eval-mode forward is the fused epilogue; forward(x, residual, relu)."""
+    forward is the fused epilogue; forward(x, residual, relu). Train mode
+    normalises with bn_statistics of the batch and updates the running
+    statistics in place, outside autograd (nn.BatchNorm3d's own two-pass
+    statistics are never used)."""
 
     def forward(self, x, residual=None, relu=False):
-        if self.training:
-            raise NotImplementedError(
-                "train-mode BatchNorm statistics are not ported yet; call "
-                ".eval() for inference")
-        return batchnorm_relu(x, self.weight, self.bias, self.running_mean,
-                              self.running_var, residual, relu, self.eps)
+        if not self.training:
+            return batchnorm_relu(x, self.weight, self.bias,
+                                  self.running_mean, self.running_var,
+                                  residual, relu, self.eps)
+        to_last = (0, *range(2, x.dim()), 1)
+        mean, var, new_mean, new_var = bn_statistics(
+            x.permute(to_last), self.running_mean, self.running_var,
+            self.momentum)
+        with torch.no_grad():  # after bn_statistics has read running_mean
+            self.running_mean.copy_(new_mean)
+            self.running_var.copy_(new_var)
+            self.num_batches_tracked += 1
+        return batchnorm_relu(x, self.weight, self.bias, mean, var, residual,
+                              relu, self.eps)
 
 
 class EpilogueSequential(nn.Sequential):

@@ -1,7 +1,9 @@
-"""Cosine distances between embeddings and class embeddings.
+"""Cosine distances between embeddings and class embeddings, and the nearest
+class.
 
 Counterpart of zeroshotvideoclassification_tpu/ops/cdist.py:
-cosine_distances, which is no Pallas kernel: one [N, D] x [D, C] float32
+cosine_distances and nearest_class (topk_classes waits for the zero-shot
+evaluation), which are no Pallas kernels: one [N, D] x [D, C] float32
 product, here torch.matmul. It must run in full float32: class embeddings
 can lie ~1e-3 apart in cosine distance, and TF32's ~1e-3 relative error
 could flip a ranking, so a CUDA call with TF32 matmuls enabled raises.
@@ -25,3 +27,10 @@ def cosine_distances(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
                            "set torch.backends.cuda.matmul.allow_tf32 = "
                            "False")
     return 1.0 - torch.matmul(_unit(a.float()), _unit(b.float()).T)
+
+
+def nearest_class(pred: torch.Tensor, class_embed: torch.Tensor
+                  ) -> torch.Tensor:
+    """argmin cosine distance -> [N] int32 class indices."""
+    return torch.argmin(cosine_distances(pred, class_embed),
+                        dim=1).to(torch.int32)

@@ -2,9 +2,10 @@
 one GPU.
 
 Counterpart of zeroshotvideoclassification_tpu/serve/engine.py with the same
-public surface, so the JAX package's MicroBatcher and HTTP server
-(serve/batcher.py, serve/server.py) drive it unchanged: the dispatch-shape
-ladder {8, 16, 32, 64, max_batch}, pack_paths (host decode + pack, on the
+public surface, so the MicroBatcher and HTTP server (serve/batcher.py,
+serve/server.py, copies of the JAX package's) drive it as they are: the
+dispatch-shape ladder {8, 16, 32, 64, max_batch}, pack_paths (host decode +
+pack, on the
 batcher's first stage), dispatch_packed / classify_packed (device work, on
 its second stage), classify, warmup, a strict hot-swap reload, stats and
 close. Each dispatch pads to the smallest bucket that fits, with zero-weight
