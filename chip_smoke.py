@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""On-card smoke run of the PyTorch/CUDA port: its serving path and its
-training path (one GPU).
+"""On-card smoke run of the PyTorch/CUDA port: its serving path, its video
+training path, its still-image (SUN) training path with the zero-shot
+evaluation, and the temporal conv op (one GPU).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -42,7 +43,10 @@ result line) if it fails:
      width r2plus1d_18 + mlp, bf16 compute with float32 masters, batch 16:
      8 steps through the entry point with the kernels' launch counts read
      around them (37 forward and 37 backward epilogues and one K1 launch per
-     step); K1 on a training batch (16 synthetic-dataset canvases, 1 clip
+     step, plus one K1 launch and 37 forward epilogues for each dispatch of
+     the zero-shot evaluation that ends the epoch, whose forward is timed in
+     clips/s at its own batch and at the default 128 clips per dispatch); K1
+     on a training batch (16 synthetic-dataset canvases, 1 clip
      each) against its plain version, f32 and bf16, and the batch that
      device_batch hands the step against the same; then 8 steps on one
      repeated batch (finite losses, the last below the first, BN running
@@ -51,14 +55,38 @@ result line) if it fails:
      against the same two on the CPU from the same seeds (loss rtol 1e-4,
      parameters atol 2e-5 from a seeded non-zero Adam state); and one step
      on a NaN batch, which must leave parameters, moments and the step
-     count as they were.
+     count as they were;
+  8. K4 (image-motion transform) against its plain PyTorch version at the
+     SUN path's shape (16 images on a 256x342 canvas, 16 frames each, 112 x
+     112), f32 (atol 2e-6) and bf16 (1 ulp), kernel time beside the plain
+     time, and the antialiased transform's time per batch;
+  9. SUN training through cli.main's Experiment at full width: an image
+     table of seeded image files (sizes that pass through, get bounded up
+     or down and get fitted to the canvas; one file missing) and the
+     synthetic dataset's video test table, --bs 32 (16 images a step after
+     the halving, 16 clips of 16x112x112), bf16: one epoch with
+     --no-sun_antialias (one K4 launch per step) and one with the default
+     antialiased transform (no K4 launch), each ending in the zero-shot
+     evaluation of the test table (best_accuracy a number); timed steps on
+     one repeated batch as in phase 7; and one float32 step of 2 images on
+     the card against the same step on the CPU, for both transforms (loss
+     rtol 1e-4, parameters atol 2e-5 from a seeded Adam state);
+ 10. K3 (temporal conv op, which no model calls) against its plain PyTorch
+     version at the layer1 shape [16,16,56,56,144] -> 64 and at two ragged
+     midplane shapes, f32 (atol/rtol 1e-5) and bf16 (2 ulp beyond the
+     float32 bar, which counts where an output cancels to ~0), its gradients
+     once against the plain version's, and its time beside the plain
+     version's and F.conv3d's (cuDNN) on the same tensors.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
-each main path that launches it ("path": "serve" or "train"): its launches
+each main path that launches it ("path": "serve", "train" or "train_sun";
+"op" for K3, which is driven through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
-take for the same bytes (bound_ms, at the published 3.35 TB/s; the measured
-copy bandwidth is printed beside it). The last is
+take for the same work (bound_ms: bytes at the published 3.35 TB/s against
+operations at the published peak for their type; the measured copy
+bandwidth is printed beside it), and the time of the one PyTorch call that
+computes the same function where there is one (library_ms). The last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. --json PATH also writes every measurement to PATH. It imports
 the port and the helpers in tests/torch_helpers.py (numpy and torch only).
@@ -82,8 +110,11 @@ N_CLIPS, CLIP_LEN, SIZE, MAX_BATCH = 4, 16, 112, 32
 N_VIDEOS, FRAMES, HEIGHT, WIDTH = 16, 64, 240, 320
 TRAIN_BS, TRAIN_STEPS, TRAIN_WARMUP = 16, 8, 3
 CPU_CLIPS = 2  # clips of the float32 steps that also run on the CPU
+SUN_BS, SUN_STEPS = 32, 4   # --bs 32 halves to 16 images a step
+SUN_CANVAS = (256, 342)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
+BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 BN_SEED = 1  # BN scale and bias of every model built here
 # bf16 against the CPU f32 forward, per video: the two runs round at
 # different places (bf16 conv inputs, outputs and epilogues on one side,
@@ -124,12 +155,13 @@ def time_ms(fn, reps=10):
     return statistics.median(times)
 
 
-def bound(out, nbytes, flops, copy_gbs):
+def bound(out, nbytes, flops, copy_gbs, peak=F32_FLOPS_PER_S):
     """Write into `out` the least ms the card could take for this work
     (bound_ms) and which limit binds (bound_by): bytes over the published
-    memory rate against operations over the float32 peak; and the same
-    bytes at the copy rate measured in this run (copy_bound_ms)."""
-    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOPS_PER_S * 1e3
+    memory rate against operations over the published peak for their type
+    (float32 unless `peak` says otherwise); and the same bytes at the copy
+    rate measured in this run (copy_bound_ms)."""
+    by, op = nbytes / HBM_BYTES_PER_S * 1e3, flops / peak * 1e3
     out["bound_ms"], out["bound_by"] = ((by, "bytes") if by >= op
                                         else (op, "operations"))
     out["copy_bound_ms"] = nbytes / 1e9 / copy_gbs * 1e3
@@ -553,12 +585,18 @@ def kernel_counts():
         bn_apply_relu_cuda,
     )
     from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+        fused_image_motion_transform_cuda,
         fused_video_transform_cuda,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
+        temporal_conv3_cuda,
     )
 
     return {"video_transform": fused_video_transform_cuda,
             "bn_apply_relu": bn_apply_relu_cuda,
-            "bn_apply_relu_bwd": bn_apply_relu_bwd_cuda}
+            "bn_apply_relu_bwd": bn_apply_relu_bwd_cuda,
+            "image_motion_transform": fused_image_motion_transform_cuda,
+            "temporal_conv3": temporal_conv3_cuda}
 
 
 def zero_counts():
@@ -575,6 +613,107 @@ def bn_running(model):
 
     return torch.cat([b.flatten() for n, b in model.named_buffers()
                       if n.endswith(("running_mean", "running_var"))])
+
+
+def timed_steps(exp, batch, class_embed, smi, tag):
+    """TRAIN_STEPS steps of `exp`'s train step on one repeated batch of
+    TRAIN_BS clips: every step timed by CUDA events and by the host's clock
+    around a synchronise, then the timed ones again queued back to back;
+    finite falling losses, moved BN statistics, float32 masters. -> the
+    measurements."""
+    import torch
+
+    stats0 = bn_running(exp.model).clone()
+
+    def one_step():
+        return exp.train_step(batch["x"], batch["z"], batch["label"],
+                              batch["weight"], class_embed)
+
+    def events():
+        return (torch.cuda.Event(enable_timing=True),
+                torch.cuda.Event(enable_timing=True))
+
+    losses, times, ev_times = [], [], []
+    for i in range(TRAIN_STEPS):
+        if i == TRAIN_WARMUP:
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+        torch.cuda.synchronize()
+        a, b = events()
+        t0 = time.perf_counter()
+        a.record()
+        m = one_step()
+        b.record()
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        ev_times.append(a.elapsed_time(b))
+        losses.append(float(m["loss"]))
+    peak = torch.cuda.max_memory_allocated() / 2 ** 30
+    step_ms = statistics.median(times[TRAIN_WARMUP:])
+    event_ms = statistics.median(ev_times[TRAIN_WARMUP:])
+    # the same steps queued without a synchronisation in between
+    n_queued = TRAIN_STEPS - TRAIN_WARMUP
+    a, b = events()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n_queued):
+        m = one_step()
+    b.record()
+    torch.cuda.synchronize()
+    queued_ms = (time.perf_counter() - t0) * 1e3 / n_queued
+    queued_event_ms = a.elapsed_time(b) / n_queued
+    losses.append(float(m["loss"]))
+    say(f"[{tag}] repeated batch of {TRAIN_BS} x {CLIP_LEN}x{SIZE}x{SIZE} "
+        f"bf16: losses {[round(v, 5) for v in losses]}")
+    say(f"[{tag}] step {event_ms:.2f} ms by CUDA events = "
+        f"{TRAIN_BS / event_ms * 1e3:.1f} clips/s, {step_ms:.1f} ms by the "
+        f"host's clock = {TRAIN_BS / step_ms * 1e3:.1f} clips/s (medians of "
+        f"{n_queued} synchronised steps after {TRAIN_WARMUP} warm-up steps; "
+        f"first step {times[0]:.0f} ms); queued back to back "
+        f"{queued_event_ms:.2f} ms by events, {queued_ms:.1f} ms by the "
+        f"host's clock = {TRAIN_BS / queued_ms * 1e3:.1f} clips/s; peak "
+        f"memory {peak:.2f} GiB  ({smi})")
+    say(f"[{tag}] every step, ms by events: "
+        f"{[round(v, 2) for v in ev_times]}; by the host's clock: "
+        f"{[round(v, 2) for v in times]}")
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
+    moved = float((bn_running(exp.model) - stats0).abs().max())
+    check(moved > 1e-3, f"BN running statistics moved by {moved}")
+    check(int(exp.optimizer.total_notfinite) == 0, "a finite step skipped")
+    for p in exp.model.parameters():
+        check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
+              "masters and gradients must be float32")
+    return {
+        "losses": losses, "step_ms": step_ms, "step_ms_all": times,
+        "queued_step_ms": queued_ms, "step_event_ms": event_ms,
+        "step_event_ms_all": ev_times,
+        "queued_step_event_ms": queued_event_ms,
+        "event_clips_per_s": TRAIN_BS / event_ms * 1e3,
+        "clips_per_s": TRAIN_BS / step_ms * 1e3,
+        "queued_clips_per_s": TRAIN_BS / queued_ms * 1e3, "peak_GiB": peak}
+
+
+def eval_forward_rate(exp, clips_per_dispatch, smi, tag):
+    """clips/s of the evaluation's forward (eval-mode BN, the trainer's
+    float32 masters cast per call) at each dispatch size, input already on
+    the card. -> {clips: {"ms", "clips_per_s"}}."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.train import eval_step
+
+    exp.model.eval()
+    out = {}
+    for clips in clips_per_dispatch:
+        x = torch.rand((clips, 1, CLIP_LEN, SIZE, SIZE, 3), device=exp.device,
+                       dtype=torch.float32).sub_(0.5).to(exp.dtype)
+        ms = time_ms(lambda: eval_step(exp.model, x), reps=5)
+        out[clips] = {"ms": ms, "clips_per_s": clips / (ms / 1e3)}
+        say(f"[{tag}] evaluation forward, {clips} clips per dispatch, "
+            f"{str(exp.dtype)[6:]}: {ms:.2f} ms = "
+            f"{out[clips]['clips_per_s']:.1f} clips/s  ({smi})")
+        del x
+    return out
 
 
 def phase_train(tmp, dev, smi, copy_gbs):
@@ -619,13 +758,21 @@ def phase_train(tmp, dev, smi, copy_gbs):
     launches = read_counts()
     copies = bn_apply_relu_bwd_cuda.dy_copies
     say(f"[train] cli.main {' '.join(args[:12])} ...: {TRAIN_STEPS} steps "
-        f"in {wall:.1f} s (cuDNN's algorithm timing included), mean loss "
-        f"{summary['loss']:.5f}, launches {launches}, dy copies {copies}")
+        f"and the zero-shot evaluation in {wall:.1f} s (cuDNN's algorithm "
+        f"timing included), mean loss {summary['loss']:.5f}, test accuracy "
+        f"{summary['synthetic_test_accuracy']:.1f}, best accuracy "
+        f"{summary['best_accuracy']:.1f}, launches {launches}, dy copies "
+        f"{copies}")
     check(math.isfinite(summary["loss"]) and summary["loss"] > 0,
           f"cli.main loss {summary['loss']}")
-    check(launches == {"video_transform": TRAIN_STEPS,
-                       "bn_apply_relu": 37 * TRAIN_STEPS,
-                       "bn_apply_relu_bwd": 37 * TRAIN_STEPS},
+    check(0 <= summary["synthetic_test_accuracy"] <= 100
+          and summary["best_accuracy"] == summary["synthetic_test_accuracy"],
+          f"cli.main accuracy {summary}")
+    # 16 test videos of 1 clip: one evaluation dispatch (K1 + 37 epilogues)
+    check(launches == {"video_transform": TRAIN_STEPS + 1,
+                       "bn_apply_relu": 37 * (TRAIN_STEPS + 1),
+                       "bn_apply_relu_bwd": 37 * TRAIN_STEPS,
+                       "image_motion_transform": 0, "temporal_conv3": 0},
           f"launches per step: {launches}")
 
     # (b) steps on one repeated batch, the same objects the CLI builds
@@ -659,67 +806,8 @@ def phase_train(tmp, dev, smi, copy_gbs):
     del k1_args, want
     class_embed = torch.from_numpy(np.asarray(table.class_embed,
                                               np.float32)).to(dev)
-    stats0 = bn_running(exp.model).clone()
-
-    def one_step():
-        return exp.train_step(batch["x"], batch["z"], batch["label"],
-                              batch["weight"], class_embed)
-
-    def events():
-        return (torch.cuda.Event(enable_timing=True),
-                torch.cuda.Event(enable_timing=True))
-
-    losses, times, ev_times = [], [], []
-    for i in range(TRAIN_STEPS):
-        if i == TRAIN_WARMUP:
-            torch.cuda.synchronize()
-            torch.cuda.reset_peak_memory_stats()
-        torch.cuda.synchronize()
-        a, b = events()
-        t0 = time.perf_counter()
-        a.record()
-        m = one_step()
-        b.record()
-        torch.cuda.synchronize()
-        times.append((time.perf_counter() - t0) * 1e3)
-        ev_times.append(a.elapsed_time(b))
-        losses.append(float(m["loss"]))
-    peak = torch.cuda.max_memory_allocated() / 2 ** 30
-    step_ms = statistics.median(times[TRAIN_WARMUP:])
-    event_ms = statistics.median(ev_times[TRAIN_WARMUP:])
-    # the same steps queued without a synchronisation in between
-    n_queued = TRAIN_STEPS - TRAIN_WARMUP
-    a, b = events()
-    t0 = time.perf_counter()
-    a.record()
-    for _ in range(n_queued):
-        m = one_step()
-    b.record()
-    torch.cuda.synchronize()
-    queued_ms = (time.perf_counter() - t0) * 1e3 / n_queued
-    queued_event_ms = a.elapsed_time(b) / n_queued
-    losses.append(float(m["loss"]))
-    say(f"[train] repeated batch of {TRAIN_BS} x {CLIP_LEN}x{SIZE}x{SIZE} "
-        f"bf16: losses {[round(v, 5) for v in losses]}")
-    say(f"[train] step {event_ms:.2f} ms by CUDA events = "
-        f"{TRAIN_BS / event_ms * 1e3:.1f} clips/s, {step_ms:.1f} ms by the "
-        f"host's clock = {TRAIN_BS / step_ms * 1e3:.1f} clips/s (medians of "
-        f"{n_queued} synchronised steps after {TRAIN_WARMUP} warm-up steps; "
-        f"first step {times[0]:.0f} ms); queued back to back "
-        f"{queued_event_ms:.2f} ms by events, {queued_ms:.1f} ms by the "
-        f"host's clock = {TRAIN_BS / queued_ms * 1e3:.1f} clips/s; peak "
-        f"memory {peak:.2f} GiB  ({smi})")
-    say(f"[train] every step, ms by events: "
-        f"{[round(v, 2) for v in ev_times]}; by the host's clock: "
-        f"{[round(v, 2) for v in times]}")
-    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
-    check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    moved = float((bn_running(exp.model) - stats0).abs().max())
-    check(moved > 1e-3, f"BN running statistics moved by {moved}")
-    check(int(exp.optimizer.total_notfinite) == 0, "a finite step skipped")
-    for p in exp.model.parameters():
-        check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
-              "masters and gradients must be float32")
+    timed = timed_steps(exp, batch, class_embed, smi, "train")
+    eval_fwd = eval_forward_rate(exp, (TRAIN_BS, 128), smi, "train")
     exp.log.close()
     del exp, batch
 
@@ -786,17 +874,434 @@ def phase_train(tmp, dev, smi, copy_gbs):
         f"unchanged")
     RECORD["train"] = {
         "launches": launches, "dy_copies": copies, "cli_seconds": wall,
-        "cli_summary": summary, "losses": losses, "step_ms": step_ms,
-        "step_ms_all": times, "queued_step_ms": queued_ms,
-        "step_event_ms": event_ms, "step_event_ms_all": ev_times,
-        "queued_step_event_ms": queued_event_ms,
-        "event_clips_per_s": TRAIN_BS / event_ms * 1e3,
-        "clips_per_s": TRAIN_BS / step_ms * 1e3,
-        "queued_clips_per_s": TRAIN_BS / queued_ms * 1e3,
-        "peak_GiB": peak, "f32_card_vs_cpu": {
+        "cli_summary": summary, **timed, "eval_forward": eval_fwd,
+        "f32_card_vs_cpu": {
             "loss_rel": rel, "param_max_abs": dmax, "cpu_seconds": s_cpu}}
     RECORD["k1_train"] = k1
     return launches, k1
+
+
+def sun_motion_args(dev, images=TRAIN_BS, seed=0):
+    """K4's operands at the SUN path's shape: `images` seeded images of
+    several true sizes on the 256x342 canvas, and for each CLIP_LEN crop
+    boxes drawn and turned into taps by the port's host functions."""
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+        camera_motion_trajectory,
+        motion_resample_indices,
+    )
+
+    rng = np.random.default_rng(seed)
+    hc, wc = SUN_CANVAS
+    sizes = [(hc, wc), (200, 260), (256, 300), (172, 342), (100, 340)]
+    canvas = np.zeros((images, hc, wc, 3), np.uint8)
+    taps = [[] for _ in range(6)]
+    for k in range(images):
+        h, w = sizes[k % len(sizes)]  # (100, 340): side-112 boxes overhang
+        canvas[k, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        traj = camera_motion_trajectory((h, w), SIZE, CLIP_LEN, rng)
+        for lst, a in zip(taps, motion_resample_indices(traj, (h, w), SIZE)):
+            lst.append(a)
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (canvas, *(np.stack(t) for t in taps))]
+
+
+def phase_k4(dev, copy_gbs, smi):
+    import numpy as np
+    import torch
+
+    from torch_helpers import bf16_ulps
+    from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+        CH_OFFSET,
+        CH_SCALE,
+        camera_motion_trajectory,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.resample import (
+        fused_image_motion_transform,
+        fused_image_motion_transform_aa,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+        fused_image_motion_transform_cuda,
+    )
+
+    args = sun_motion_args(dev)
+    out = {"shapes": []}
+    for dt in (torch.float32, torch.bfloat16):
+        got = fused_image_motion_transform_cuda(*args, CH_SCALE, CH_OFFSET,
+                                                dt)
+        torch.cuda.synchronize()
+        want = fused_image_motion_transform(*args, CH_SCALE, CH_OFFSET, dt)
+        torch.cuda.synchronize()
+        err = float((got.float() - want.float()).abs().max())
+        ulps = bf16_ulps(got, want)
+        if dt == torch.float32:
+            check(err <= 2e-6, f"K4 f32: {err}")
+        else:
+            check(ulps <= 1.0, f"K4 bf16: {ulps} ulp")
+        ms = time_ms(lambda: fused_image_motion_transform_cuda(
+            *args, CH_SCALE, CH_OFFSET, dt))
+        plain = time_ms(lambda: fused_image_motion_transform(
+            *args, CH_SCALE, CH_OFFSET, dt), reps=5)
+        # images and taps read once, the output written once; ~12 float32
+        # operations per output value (two lerps and the affine)
+        nbytes = (sum(a.numel() * a.element_size() for a in args)
+                  + got.numel() * got.element_size())
+        row = {"shape": list(args[0].shape), "frames": CLIP_LEN,
+               "dtype": str(dt)[6:], "max_abs_err": err, "bf16_ulps": ulps,
+               "ms": ms, "plain_ms": plain, "bytes": nbytes,
+               "flops": 12 * got.numel(),
+               "GB_per_s": nbytes / 1e9 / (ms / 1e3)}
+        out["shapes"].append(row)
+        say(f"[K4] images {'x'.join(map(str, row['shape']))} x {CLIP_LEN} "
+            f"frames -> {row['dtype']}: err {err:.3g} ({ulps:.2f} bf16 ulp)  "
+            f"kernel {ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  plain "
+            f"{plain:.3f} ms")
+        del got, want
+    out["max_abs_err"] = max(r["max_abs_err"] for r in out["shapes"])
+    out["ms"], out["plain_ms"] = row["ms"], row["plain_ms"]
+    say(f"[K4] SUN batch of {TRAIN_BS} -> bfloat16: "
+        + bound(out, row["bytes"], row["flops"], copy_gbs))
+
+    # the antialiased transform (plain PyTorch on every device) on the same
+    # images: its time per batch, and its two implementations against each
+    # other (2e-3, the JAX package's bar between them and torch's antialias)
+    rng = np.random.default_rng(1)
+    true_hw = (SUN_CANVAS[0] * 25 // 32, SUN_CANVAS[1] * 3 // 4)  # 200x256
+    hw = np.asarray([true_hw] * TRAIN_BS, np.int32)
+    traj = np.stack([camera_motion_trajectory(true_hw, SIZE, CLIP_LEN, rng)
+                     for _ in range(TRAIN_BS)])
+    aa_args = (args[0], torch.from_numpy(traj.astype(np.int32)).to(dev),
+               torch.from_numpy(hw).to(dev), CH_SCALE, CH_OFFSET)
+    mxu = fused_image_motion_transform_aa(*aa_args)
+    gather = fused_image_motion_transform_aa(*aa_args, impl="gather")
+    aa_err = float((mxu - gather).abs().max())
+    check(bool(torch.isfinite(mxu).all()) and aa_err <= 2e-3,
+          f"antialiased transform: mxu vs gather {aa_err}")
+    del gather, mxu
+    aa_ms = time_ms(lambda: fused_image_motion_transform_aa(
+        *aa_args, out_dtype=torch.bfloat16), reps=5)
+    say(f"[K4] antialiased transform (impl=mxu) of the same {TRAIN_BS} "
+        f"images -> bfloat16: {aa_ms:.3f} ms per batch; mxu vs gather "
+        f"{aa_err:.3g}  ({smi})")
+    out["antialiased_ms"], out["aa_mxu_vs_gather"] = aa_ms, aa_err
+    RECORD["k4"] = out
+    return out
+
+
+def write_sun_images(tmp, n):
+    """n seeded image files (the last path does not exist), in sizes that
+    pass through load_and_bound_image as they are, get bounded up (min side
+    < 172) or down (> 512), and exceed the 256x342 canvas so that
+    HostPipeline._fit_image shrinks them. -> paths."""
+    import cv2
+    import numpy as np
+
+    rng = np.random.default_rng(7)
+    sizes = [(200, 260), (240, 320), (120, 150), (60, 80), (600, 800),
+             (300, 1000), (256, 342), (375, 500)]
+    root = os.path.join(tmp, "sun")
+    os.makedirs(root, exist_ok=True)
+    paths = []
+    for k in range(n - 1):
+        h, w = sizes[k % len(sizes)]
+        base = rng.integers(0, 256, (h // 8 + 1, w // 8 + 1, 3))
+        img = np.kron(base, np.ones((8, 8, 1)))[:h, :w]
+        img = np.clip(img + rng.normal(0, 8, img.shape), 0, 255)
+        path = os.path.join(root, f"img{k:03d}.jpg")
+        check(cv2.imwrite(path, img.astype(np.uint8)), f"writing {path}")
+        paths.append(path)
+    paths.append(os.path.join(root, "missing.jpg"))
+    return paths
+
+
+def phase_sun(tmp, dev, smi):
+    """SUN still-image training through cli.main's Experiment, with the
+    zero-shot evaluation of a video test table. -> (launches of the
+    --no-sun_antialias run, the record)."""
+    import numpy as np
+    import torch
+
+    from torch_helpers import seed_adam
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.config import (
+        config_from_namespace,
+        transform_dtype,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.datasets import VideoTable
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        HostPipeline,
+        device_batch,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.synthetic import (
+        build_synthetic_datasets,
+        class_embeddings,
+    )
+
+    n_images = TRAIN_BS * SUN_STEPS
+    t0 = time.perf_counter()
+    paths = write_sun_images(tmp, n_images)
+    say(f"[sun] {n_images - 1} seeded image files and one missing path "
+        f"written in {time.perf_counter() - t0:.1f} s")
+    n_classes = 8
+    labels = (np.arange(n_images) % n_classes).astype(np.int32)
+
+    def config(dtype, bs, aa):
+        argv = ["--dataset", "sun2both", "--network", "r2plus1d_18", "--bs",
+                str(bs), "--n_epochs", "1", "--compute_dtype", dtype,
+                "--save_path", os.path.join(tmp, "sun_runs"),
+                "--no-progressbar", "--nopretrained", "--device", str(dev),
+                "--sun_antialias" if aa else "--no-sun_antialias"]
+        return config_from_namespace(
+            train_cli.build_arg_parser().parse_args(argv))
+
+    def datasets(cfg, n):
+        table = VideoTable(
+            name="sun", fnames=np.asarray(paths[-n:], object),
+            label_idx=labels[-n:], classes=[f"scene{c}" for c in
+                                            range(n_classes)],
+            class_embed=class_embeddings(range(100, 100 + n_classes)),
+            loader="image", is_validation=False, n_clips=1)
+        return {"training": [table],
+                "testing": build_synthetic_datasets(cfg)["testing"]}
+
+    # (a) one epoch for each transform, ending in the evaluation
+    out = {}
+    for aa in (False, True):
+        tag = "antialiased" if aa else "no-sun_antialias"
+        cfg = config("bfloat16", SUN_BS, aa)
+        data = datasets(cfg, n_images)
+        exp = train_cli.Experiment(cfg, data, device=dev)
+        check(exp.train_bs == TRAIN_BS and exp.global_bs == SUN_BS,
+              f"halved batch {exp.train_bs} of {exp.global_bs}")
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = exp.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = read_counts()
+        say(f"[sun] {tag}: Experiment.run, --bs {SUN_BS} -> {exp.train_bs} "
+            f"images a step: {exp.train_step.state.step} steps and the "
+            f"evaluation in {wall:.1f} s, mean loss {summary['loss']:.5f}, "
+            f"test accuracy {summary['synthetic_test_accuracy']:.1f}, best "
+            f"accuracy {summary['best_accuracy']:.1f}, launches {launches}")
+        check(exp.train_step.state.step == SUN_STEPS, "steps of the epoch")
+        check(math.isfinite(summary["loss"]) and summary["loss"] > 0,
+              f"SUN loss {summary['loss']}")
+        check(isinstance(summary["best_accuracy"], float)
+              and 0 <= summary["best_accuracy"] <= 100
+              and summary["best_accuracy"]
+              == summary["synthetic_test_accuracy"],
+              f"SUN accuracy {summary}")
+        check(int(exp.optimizer.total_notfinite) == 0, "a SUN step skipped")
+        # one K4 launch per step without the antialiasing, none with it; the
+        # evaluation is one dispatch of 16 one-clip videos (K1 + 37 K2)
+        check(launches == {
+            "video_transform": 1, "bn_apply_relu": 37 * (SUN_STEPS + 1),
+            "bn_apply_relu_bwd": 37 * SUN_STEPS,
+            "image_motion_transform": 0 if aa else SUN_STEPS,
+            "temporal_conv3": 0}, f"SUN launches ({tag}): {launches}")
+        out[tag] = {"launches": launches, "summary": summary,
+                    "seconds": wall}
+        del exp
+    sun_launches = out["no-sun_antialias"]["launches"]
+
+    # (b) timed steps on one repeated image batch (the antialiased default)
+    table = data["training"][0]
+    host = next(iter(HostPipeline(table, cfg, TRAIN_BS, seed=cfg.seed)))
+    check(host.image_mode and host.trajectory is not None
+          and host.canvas.shape == (TRAIN_BS, *SUN_CANVAS, 3)
+          and float(host.weight.sum()) in (TRAIN_BS - 1.0, float(TRAIN_BS)),
+          "SUN host batch")
+    exp = train_cli.Experiment(cfg, data, device=dev)
+    batch = device_batch(host, 1, cfg.clip_len, transform_dtype(cfg), dev)
+    check(tuple(batch["x"].shape) == (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3)
+          and batch["x"].dtype == torch.bfloat16
+          and bool(torch.isfinite(batch["x"].float()).all()),
+          "SUN train batch")
+    class_embed = torch.from_numpy(np.asarray(table.class_embed,
+                                              np.float32)).to(dev)
+    out.update(timed_steps(exp, batch, class_embed, smi, "sun"))
+    exp.log.close()
+    del exp, batch
+
+    # (c) one float32 step of CPU_CLIPS images, card against CPU, for both
+    # transforms (K4 against its plain version inside the whole step)
+    out["f32_card_vs_cpu"] = {}
+    for aa in (False, True):
+        cfg32 = config("float32", 2 * CPU_CLIPS, aa)
+        data32 = datasets(cfg32, 2 * CPU_CLIPS)  # the missing file among them
+        table = data32["training"][0]
+        host = next(iter(HostPipeline(table, cfg32, CPU_CLIPS,
+                                      seed=cfg32.seed)))
+        ce_np = np.asarray(table.class_embed, np.float32)
+        runs = {}
+        for d in ("cpu", dev):
+            exp = train_cli.Experiment(cfg32, data32, device=d)
+            check(exp.train_bs == CPU_CLIPS, "halved float32 batch")
+            seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+            b = device_batch(host, 1, cfg32.clip_len, torch.float32, d)
+            ce = torch.from_numpy(ce_np).to(d)
+            loss = float(exp.train_step(b["x"], b["z"], b["label"],
+                                        b["weight"], ce)["loss"])
+            runs[str(d)] = (loss, b["x"].cpu(), {
+                k: v.detach().cpu().clone()
+                for k, v in exp.model.named_parameters()})
+            exp.log.close()
+            del exp, b
+        (l_cpu, x_cpu, p_cpu), (l_gpu, x_gpu, p_gpu) = (runs["cpu"],
+                                                        runs[str(dev)])
+        xerr = float((x_gpu - x_cpu).abs().max())
+        rel = abs(l_gpu - l_cpu) / abs(l_cpu)
+        dmax = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+        tag = "antialiased" if aa else "no-sun_antialias"
+        # the 2-tap transform repeats the plain version's operations; the
+        # antialiased one sums its products in another order on the card
+        xbar = 1e-4 if aa else 2e-6
+        say(f"[sun] {tag}: one float32 step of {CPU_CLIPS} images, card vs "
+            f"CPU: input differs by {xerr:.3g} (bar {xbar}), loss {l_gpu} "
+            f"vs {l_cpu} (rel {rel:.2g}, bar 1e-4), parameters by at most "
+            f"{dmax:.3g} (bar 2e-5)")
+        check(xerr <= xbar, f"SUN input card vs CPU ({tag}): {xerr}")
+        check(rel <= 1e-4, f"SUN loss card vs CPU ({tag}): {l_gpu} {l_cpu}")
+        check(dmax <= 2e-5, f"SUN parameters card vs CPU ({tag}): {dmax}")
+        out["f32_card_vs_cpu"][tag] = {"input_max_abs": xerr,
+                                       "loss_rel": rel,
+                                       "param_max_abs": dmax}
+    RECORD["sun"] = out
+    return sun_launches, out
+
+
+K3_SHAPES = [  # (x [N, T, H, W, Ci], Co): layer1, then two ragged midplanes
+    ((16, 16, 56, 56, 144), 64), ((16, 8, 28, 28, 230), 128),
+    ((16, 2, 7, 7, 921), 512)]
+
+
+def phase_k3(dev, copy_gbs, smi):
+    """The temporal conv op against its plain version and beside F.conv3d.
+    -> (launches of the op driven through its public entry, the record)."""
+    import torch
+    import torch.nn.functional as F
+
+    from torch_helpers import bf16_ulps
+    from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
+        temporal_conv3,
+        temporal_conv3_cuda,
+        temporal_conv3_plain,
+    )
+
+    g = torch.Generator(device=dev).manual_seed(2)
+    out = {"max_abs_err": 0.0, "shapes": []}
+    for shape, co in K3_SHAPES:
+        ci = shape[-1]
+        x32 = torch.randn(shape, device=dev, generator=g)
+        w32 = (torch.randn((3, 1, 1, ci, co), device=dev, generator=g)
+               / (3 * ci) ** 0.5)  # outputs of O(1)
+        for dt in (torch.float32, torch.bfloat16):
+            x, w = x32.to(dt), w32.to(dt)
+            got = temporal_conv3_cuda(x, w)
+            torch.cuda.synchronize()
+            want = temporal_conv3_plain(x, w)
+            torch.cuda.synchronize()
+            diff = (got.float() - want.float()).abs()
+            err = float(diff.max())
+            what = f"K3 {shape}->{co} {str(dt)[6:]}"
+            if dt == torch.float32:
+                ulps = None
+                check(bool((diff <= 1e-5 + 1e-5 * want.abs()).all()),
+                      f"{what}: {err}")
+            else:
+                # both sides round one float32 sum to bf16, and the two sums
+                # differ by up to the float32 bar (another order over 3 * Ci
+                # products): 2 ulp of the plain value beyond that bar, which
+                # only counts where an output cancels to nearly zero
+                ulps = bf16_ulps((diff - 1e-5).clamp_min(0) + want.float(),
+                                 want)
+                check(ulps <= 2.0, f"{what}: {ulps} ulp beyond 1e-5")
+            del diff
+            out["max_abs_err"] = max(out["max_abs_err"], err)
+            del got, want
+            ms = time_ms(lambda: temporal_conv3_cuda(x, w))
+            plain = time_ms(lambda: temporal_conv3_plain(x, w), reps=5)
+            # the library call: cuDNN on the same x (its channels-last-3d
+            # view) and the weight laid out for it, benchmark mode on
+            xv = x.permute(0, 4, 1, 2, 3)
+            wv = w.permute(4, 3, 0, 1, 2).contiguous(
+                memory_format=torch.channels_last_3d)
+            lib = time_ms(lambda: F.conv3d(xv, wv, padding=(1, 0, 0)))
+            lib_err = float((F.conv3d(xv, wv, padding=(1, 0, 0))
+                             .permute(0, 2, 3, 4, 1).float()
+                             - temporal_conv3_cuda(x, w).float()).abs().max())
+            rows = shape[0] * shape[1] * shape[2] * shape[3]
+            nbytes = (x.numel() + w.numel() + rows * co) * x.element_size()
+            flops = 2 * rows * 3 * ci * co
+            row = {"shape": list(shape), "co": co, "dtype": str(dt)[6:],
+                   "max_abs_err": err, "bf16_ulps": ulps, "ms": ms,
+                   "plain_ms": plain, "library_ms": lib,
+                   "vs_library_max_abs": lib_err, "bytes": nbytes,
+                   "flops": flops, "TFLOP_per_s": flops / 1e12 / (ms / 1e3)}
+            peak = (BF16_FLOPS_PER_S if dt == torch.bfloat16
+                    else F32_FLOPS_PER_S)
+            text = bound(row, nbytes, flops, copy_gbs, peak)
+            out["shapes"].append(row)
+            say(f"[K3] {'x'.join(map(str, shape))} -> {co} {row['dtype']}: "
+                f"err {err:.3g} ("
+                + ("" if ulps is None else f"{ulps:.2f} bf16 ulp; ")
+                + f"{lib_err:.3g} from F.conv3d)  kernel {ms:.3f} ms "
+                f"({row['TFLOP_per_s']:.1f} TFLOP/s)  plain {plain:.3f} ms  "
+                f"F.conv3d {lib:.3f} ms; " + text)
+            del x, w, xv, wv
+        del x32, w32
+    # the gradients once, at a ragged shape in float32: the op's backward
+    # (the library convolution's gradient) against the plain version's
+    # autograd gradient, within 1e-4 of each gradient's largest entry
+    shape, co = (4, 4, 14, 14, 230), 128
+    x = torch.randn(shape, device=dev, generator=g).requires_grad_()
+    w = (torch.randn((3, 1, 1, shape[-1], co), device=dev, generator=g)
+         / (3 * shape[-1]) ** 0.5).requires_grad_()
+    dy = torch.randn((*shape[:4], co), device=dev, generator=g)
+    with torch.enable_grad():
+        got = torch.autograd.grad(
+            (temporal_conv3(x, w, torch.float32) * dy).sum(), (x, w))
+        xf, wf = x, w[:, 0, 0]
+        y = xf @ wf[1]
+        y = y + F.pad(xf[:, :-1] @ wf[0], (0, 0) * 3 + (1, 0))
+        y = y + F.pad(xf[:, 1:] @ wf[2], (0, 0) * 3 + (0, 1))
+        want = torch.autograd.grad((y * dy).sum(), (x, w))
+    grad_rel = 0.0
+    for name, a, b in zip(("dx", "dw"), got, want):
+        rel = float((a - b).abs().max() / b.abs().max())
+        check(rel <= 1e-4, f"K3 {name}: off by {rel} of its largest entry")
+        grad_rel = max(grad_rel, rel)
+    say(f"[K3] gradients at {shape} -> {co} float32 within {grad_rel:.2g} "
+        f"of their largest entry of the plain version's (bar 1e-4)")
+    del x, w, dy, got, want, y
+
+    # the op as a user calls it, counted: bf16 (the default) and float32
+    zero_counts()
+    shape, co = K3_SHAPES[0]
+    x = torch.randn(shape, device=dev, generator=g)
+    w = torch.randn((3, 1, 1, shape[-1], co), device=dev, generator=g)
+    for dt in (torch.bfloat16, torch.float32):
+        y = temporal_conv3(x, w, dt)
+        check(y.dtype == dt and tuple(y.shape) == (*shape[:4], co)
+              and bool(torch.isfinite(y.float()).all()), "temporal_conv3")
+    torch.cuda.synchronize()
+    launches = read_counts()
+    check(launches["temporal_conv3"] == 2, f"K3 launches: {launches}")
+    main_row = next(r for r in out["shapes"] if r["shape"] == list(shape)
+                    and r["dtype"] == "bfloat16")
+    for k in ("ms", "plain_ms", "library_ms", "bound_ms", "bound_by",
+              "copy_bound_ms"):
+        out[k] = main_row[k]
+    out["grad_max_rel_err"] = grad_rel
+    say(f"[K3] layer1 shape in bf16: kernel {out['ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms, F.conv3d {out['library_ms']:.3f} ms, "
+        f"bound {out['bound_ms']:.3f} ms ({out['bound_by']}); launches "
+        f"through the op: {launches['temporal_conv3']}  ({smi})")
+    RECORD["k3"] = out
+    return launches, out
 
 
 def phase_model(paths, dev):
@@ -1014,6 +1519,11 @@ def main(argv=None):
         k2b, k2_train = phase_k2_bwd(train_calls, dev, copy_gbs)
         torch.cuda.empty_cache()
         train_launches, k1_train = phase_train(tmp, dev, smi, copy_gbs)
+        torch.cuda.empty_cache()
+        k4 = phase_k4(dev, copy_gbs, smi)
+        sun_launches, _ = phase_sun(tmp, dev, smi)
+        torch.cuda.empty_cache()
+        k3_launches, k3 = phase_k3(dev, copy_gbs, smi)
 
     outside = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "zeroshotvideoclassification_tpu")]
@@ -1030,7 +1540,8 @@ def main(argv=None):
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
-                "copy_bound_ms": rec["copy_bound_ms"], "library_ms": None}
+                "copy_bound_ms": rec["copy_bound_ms"],
+                "library_ms": rec.get("library_ms")}
 
     k1_at, k2_at = "resample_pallas.py:74", "bn_pallas.py:131"
     kernels = {"kernels": [
@@ -1044,6 +1555,19 @@ def main(argv=None):
             train_launches, k2_train),
         row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
             "train", train_launches, k2b),
+        row("image_motion_transform", "image_motion_transform.cu",
+            "resample_pallas.py:131", "train_sun", sun_launches, k4),
+        # the SUN path's other kernels run at the video training path's
+        # shapes (16 clips a step; 16 one-clip videos an evaluation
+        # dispatch): its launches beside those measurements
+        row("video_transform", "video_transform.cu", k1_at, "train_sun",
+            sun_launches, k1_train),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train_sun",
+            sun_launches, k2_train),
+        row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
+            "train_sun", sun_launches, k2b),
+        row("temporal_conv3", "temporal_conv.cu", "temporal_conv.py:76",
+            "op", k3_launches, k3),
     ]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was never launched on a main path: {kernels}")

@@ -24,12 +24,26 @@ from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     bn_apply_relu_cuda,
     bn_apply_relu_plain,
 )
+from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+    CH_OFFSET,
+    CH_SCALE,
+    camera_motion_trajectory,
+    motion_resample_indices,
+)
 from zeroshotvideoclassification_tpu_torch.ops.resample import (
+    fused_image_motion_transform,
     fused_video_transform,
 )
 from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+    fused_image_motion_transform_cuda,
     fused_video_transform_cuda,
+    image_motion_transform,
     video_transform,
+)
+from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
+    temporal_conv3,
+    temporal_conv3_cuda,
+    temporal_conv3_plain,
 )
 from torch_helpers import (
     bf16_ulps,
@@ -89,6 +103,114 @@ def test_k1_odd_canvas_and_refusals(cuda):
     with pytest.raises(ValueError, match="y1"):
         fused_video_transform_cuda(args[0], args[1], args[2].cpu(),
                                    *args[3:])
+
+
+def _motion_args(dev, b=3, t=5, hw=(180, 221), canvas=(200, 230), seed=0,
+                 trajectories=None):
+    rng = np.random.default_rng(seed)
+    imgs = np.zeros((b, *canvas, 3), np.uint8)
+    imgs[:, :hw[0], :hw[1]] = rng.integers(0, 256, (b, *hw, 3),
+                                           dtype=np.uint8)
+    idx = []
+    for k in range(b):
+        traj = (camera_motion_trajectory(hw, 112, t, rng)
+                if trajectories is None else np.asarray(trajectories))
+        idx.append(motion_resample_indices(traj, hw, 112))
+    taps = [np.stack([idx[k][j] for k in range(b)]) for j in range(6)]
+    return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+            for a in (imgs, *taps)]
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k4_matches_plain(cuda, out_dtype):
+    """K4 against its plain version on the card: float32 within 2e-6 (the
+    same operations in the same order, no contraction), bf16 within 1 ulp."""
+    args = _motion_args(cuda)
+    want = fused_image_motion_transform(*args, CH_SCALE, CH_OFFSET, out_dtype)
+    before = fused_image_motion_transform_cuda.launches
+    got = image_motion_transform(*args, CH_SCALE, CH_OFFSET, out_dtype)
+    torch.cuda.synchronize()
+    assert fused_image_motion_transform_cuda.launches == before + 1
+    assert got.dtype == out_dtype and got.shape == (3, 5, 112, 112, 3)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+
+
+def test_k4_overhanging_boxes_and_refusals(cuda):
+    traj = [[0, 5, 112], [0, 200, 112], [0, 300, 112]]
+    args = _motion_args(cuda, b=2, t=3, hw=(100, 400), canvas=(100, 400),
+                        trajectories=traj)
+    got = fused_image_motion_transform_cuda(*args, CH_SCALE, CH_OFFSET)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(
+        got, fused_image_motion_transform(*args, CH_SCALE, CH_OFFSET),
+        atol=2e-6, rtol=0)
+    with pytest.raises(ValueError, match="contiguous"):
+        fused_image_motion_transform_cuda(
+            args[0].transpose(1, 2).contiguous().transpose(1, 2), *args[1:],
+            CH_SCALE, CH_OFFSET)
+    with pytest.raises(ValueError, match="y1"):
+        fused_image_motion_transform_cuda(args[0], args[1], args[2].cpu(),
+                                          *args[3:], CH_SCALE, CH_OFFSET)
+
+
+def _tconv_operands(dev, shape, co, dtype, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    ci = shape[-1]
+    x = torch.randn(shape, device=dev, generator=g).to(dtype)
+    w = (torch.randn((3, 1, 1, ci, co), device=dev, generator=g)
+         / (3 * ci) ** 0.5).to(dtype)
+    return x, w
+
+
+# (x shape [N, T, H, W, Ci], Co): tiles that are whole, ragged in rows, in
+# Ci (not a multiple of 16) and in Co (not a multiple of 64), T = 1 and 2
+K3_SHAPES = [((2, 4, 8, 8, 32), 64), ((2, 5, 7, 9, 45), 64),
+             ((3, 2, 7, 7, 230), 128), ((1, 1, 5, 5, 16), 7),
+             ((2, 3, 11, 13, 144), 70)]
+
+
+@pytest.mark.parametrize("shape,co", K3_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_k3_matches_plain(cuda, shape, co, dtype):
+    """K3 against its plain version on the card: float32 within atol/rtol
+    1e-5 (another summation order over 3 * Ci products of O(1) results),
+    bf16 within 2 ulp (both accumulate in float32 and round once)."""
+    x, w = _tconv_operands(cuda, shape, co, dtype)
+    want = temporal_conv3_plain(x, w)
+    before = temporal_conv3_cuda.launches
+    got = temporal_conv3(x, w, dtype)
+    torch.cuda.synchronize()
+    assert temporal_conv3_cuda.launches == before + 1
+    assert got.dtype == dtype and got.shape == (*shape[:4], co)
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=1e-5, rtol=1e-5)
+    else:
+        assert bf16_ulps(got, want) <= 2.0
+
+
+def test_k3_gradients_and_refusals(cuda):
+    """The op differentiates on the card (forward by the kernel, backward by
+    the library convolution's gradient): within 1e-4 of the plain version's
+    autograd gradients."""
+    x, w = _tconv_operands(cuda, (2, 4, 6, 6, 24), 40, torch.float32)
+    leaves = [x.requires_grad_(), w.requires_grad_()]
+    g = torch.randn((2, 4, 6, 6, 40), device=cuda)
+    got = torch.autograd.grad((temporal_conv3(x, w, torch.float32) * g).sum(),
+                              leaves)
+    xf, wf = x.float(), w[:, 0, 0].float()
+    y = xf @ wf[1]
+    y = y + torch.nn.functional.pad(xf[:, :-1] @ wf[0], (0, 0) * 3 + (1, 0))
+    y = y + torch.nn.functional.pad(xf[:, 1:] @ wf[2], (0, 0) * 3 + (0, 1))
+    want = torch.autograd.grad((y * g).sum(), leaves)
+    for a, b in zip(got, want):
+        torch.testing.assert_close(a, b, atol=1e-4, rtol=1e-4)
+    with pytest.raises(ValueError, match="contiguous"):
+        temporal_conv3_cuda(x.detach().transpose(2, 3), w.detach())
+    with pytest.raises(ValueError, match="share one of"):
+        temporal_conv3_cuda(x.detach(), w.detach().to(torch.bfloat16))
 
 
 def _bn_operands(dev, shape, dtype, with_res, seed=0):

@@ -43,7 +43,8 @@ def _run(code, timeout=600):
 def test_every_port_module_imports():
     mods = _all_modules()
     for name in ("config", "_build", "ops.resample", "ops.resample_cuda",
-                 "ops.bn_cuda", "ops.cdist", "models.layers",
+                 "ops.bn_cuda", "ops.cdist", "ops.temporal_conv",
+                 "eval.zeroshot", "models.layers",
                  "models.resnet3d", "models.heads", "models.bridge",
                  "train.checkpoint", "train.step", "train.optimizer",
                  "data.pipeline", "data.datasets", "data.decode",
@@ -74,6 +75,26 @@ assert main.build_arg_parser().parse_args([]).device == "cuda"
 assert serve.build_arg_parser().parse_args([]).device == "cuda"
 from zeroshotvideoclassification_tpu_torch.text.lemma import verbs2basicform
 assert verbs2basicform(["riding", "horses"])[0] == "ride"
+# the evaluation, the temporal conv op and the image-motion transform run
+# (their plain versions, on the CPU) and still load no kernel library
+import numpy as np, torch
+from zeroshotvideoclassification_tpu_torch.eval.zeroshot import (
+    compute_accuracy)
+from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
+    temporal_conv3)
+from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+    image_motion_transform)
+e = np.eye(6, 300, dtype=np.float32)
+assert compute_accuracy(e, e, e) == (100.0, 100.0)
+y = temporal_conv3(torch.ones(1, 3, 2, 2, 4), torch.ones(3, 1, 1, 4, 5),
+                   torch.float32)
+assert y.shape == (1, 3, 2, 2, 5) and float(y[0, 1, 0, 0, 0]) == 12.0
+z = torch.zeros(1, 2, 8, dtype=torch.int32)
+x = image_motion_transform(torch.full((1, 9, 9, 3), 255, dtype=torch.uint8),
+                           z, z, z.float(), z, z, z.float(), [2.0] * 3,
+                           [1.0] * 3)
+assert x.shape == (1, 2, 8, 8, 3) and float(x.min()) == 511.0
+assert _build._lib is None
 """ + UNBLOCKED + """
 print("OK", len(names))
 """
@@ -109,7 +130,8 @@ print("OK")
 
 def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
-             os.path.join(ROOT, "tools", "profile_serve.py")]
+             os.path.join(ROOT, "tools", "profile_serve.py"),
+             os.path.join(ROOT, "tools", "profile_train.py")]
     for d, _, names in os.walk(os.path.dirname(port.__file__)):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -119,7 +141,7 @@ def _sources():
                                   for p in _sources()])
 def test_no_source_imports_the_jax_package(path):
     """No `import` / `from` line of the port, chip_smoke.py or
-    tools/profile_serve.py names jax or zeroshotvideoclassification_tpu
+    tools/profile_{serve,train}.py names jax or zeroshotvideoclassification_tpu
     (without _torch), nor does an importlib / __import__ call."""
     bad = re.compile(
         r"^\s*(from|import)\s+(jax|jaxlib|zeroshotvideoclassification_tpu)"
@@ -135,22 +157,27 @@ def test_no_source_imports_the_jax_package(path):
 def test_sources_cover_the_whole_port():
     rel = [os.path.relpath(p, ROOT) for p in _sources()]
     assert "chip_smoke.py" in rel and len(rel) > 40
-    assert os.path.join("zeroshotvideoclassification_tpu_torch", "cli",
-                        "main.py") in rel
+    for sub in (("cli", "main.py"), ("eval", "zeroshot.py"),
+                ("ops", "temporal_conv.py"), ("ops", "resample_cuda.py")):
+        assert os.path.join("zeroshotvideoclassification_tpu_torch",
+                            *sub) in rel, sub
 
 
 def test_kernel_sources_ship_with_the_package():
     from zeroshotvideoclassification_tpu_torch import _build
 
     names = {p.name for p in _build.sources()}
-    assert names == {"video_transform.cu", "bn_apply_relu.cu"}
+    assert names == {"video_transform.cu", "bn_apply_relu.cu",
+                     "image_motion_transform.cu", "temporal_conv.cu"}
     # every C entry point the wrappers call is declared with its argtypes
     text = "".join(p.read_text() for p in _build.sources())
     for fn in _build.SIGNATURES:
         assert f'extern "C" int {fn}(' in text, fn
     assert {"zsvc_bn_bwd_f32", "zsvc_bn_bwd_bf16", "zsvc_bn_apply_relu_f32",
             "zsvc_bn_apply_relu_bf16", "zsvc_video_transform_f32",
-            "zsvc_video_transform_bf16"} == set(_build.SIGNATURES)
+            "zsvc_video_transform_bf16", "zsvc_image_motion_transform_f32",
+            "zsvc_image_motion_transform_bf16", "zsvc_temporal_conv3_f32",
+            "zsvc_temporal_conv3_bf16"} == set(_build.SIGNATURES)
     # the backward's sums are deterministic: no float atomics in any kernel
     assert "atomicAdd" not in text
 

@@ -1,10 +1,13 @@
 """Build the CUDA kernels in csrc/ at first use and load them with ctypes.
 
 All of csrc/*.cu compiles with nvcc into ONE shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), for sm_90a:
+interface (no PyTorch headers, so the build takes seconds), for sm_90a: one
+nvcc per source, all started together, then one link:
 
-  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -shared
-       -Xcompiler -fPIC -o libzsvc_torch_kernels.so csrc/*.cu
+  nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -Xcompiler -fPIC
+       -Xptxas -v -c -o <name>.o csrc/<name>.cu          (each source)
+  nvcc -gencode arch=compute_90a,code=sm_90a -shared
+       -o libzsvc_torch_kernels.so *.o
 
 The library lands in build/torch_kernels/<hash>/ at the root of the
 checkout, keyed by a hash of the sources and the command, so an edited
@@ -34,15 +37,20 @@ _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
 LIB_NAME = "libzsvc_torch_kernels.so"
-NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-O3",
-              "-std=c++17", "-shared", "-Xcompiler", "-fPIC",
+ARCH_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a")
+NVCC_FLAGS = (*ARCH_FLAGS, "-O3", "-std=c++17", "-Xcompiler", "-fPIC",
               "-Xptxas", "-v")
 
-_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
+                   ctypes.c_float)
 # entry point -> argtypes (every pointer and the stream are c_void_p)
 SIGNATURES = {
     "zsvc_video_transform_f32": [_P] * 8 + [_I] * 5 + [_P],
     "zsvc_video_transform_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "zsvc_image_motion_transform_f32": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
+    "zsvc_image_motion_transform_bf16": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
+    "zsvc_temporal_conv3_f32": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
+    "zsvc_temporal_conv3_bf16": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
     "zsvc_bn_apply_relu_f32": [_P] * 5 + [_LL, _I, _I, _P],
     "zsvc_bn_apply_relu_bf16": [_P] * 5 + [_LL, _I, _I, _P],
     "zsvc_bn_bwd_f32": [_P] * 10 + [_LL] + [_I] * 5 + [_P],
@@ -103,16 +111,34 @@ def build() -> BuildResult:
         try:
             if lib.exists():
                 return BuildResult(lib, False, time.perf_counter() - t0, "")
-            tmp = out_dir / f".{LIB_NAME}.{os.getpid()}.tmp"
-            cmd = [nvcc_path(), *NVCC_FLAGS, "-o", str(tmp),
-                   *map(str, srcs)]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                tmp.unlink(missing_ok=True)
-                raise RuntimeError(
-                    f"nvcc failed ({proc.returncode}): {' '.join(cmd)}\n{log}")
-            os.replace(tmp, lib)
+            nvcc, tag = nvcc_path(), f"{os.getpid()}.tmp"
+            objs = [out_dir / f".{s.stem}.{tag}.o" for s in srcs]
+            tmp = out_dir / f".{LIB_NAME}.{tag}"
+            try:
+                cmds = [[nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(s)]
+                        for s, o in zip(srcs, objs)]
+                procs = [subprocess.Popen(c, stdout=subprocess.PIPE,
+                                          stderr=subprocess.STDOUT, text=True)
+                         for c in cmds]
+                log = ""
+                for cmd, proc in zip(cmds, procs):  # wait for every one
+                    log += proc.communicate()[0]
+                    if proc.returncode != 0:
+                        log += (f"\nnvcc failed ({proc.returncode}): "
+                                f"{' '.join(cmd)}\n")
+                if any(p.returncode != 0 for p in procs):
+                    raise RuntimeError(log)
+                cmd = [nvcc, *ARCH_FLAGS, "-shared", "-o", str(tmp),
+                       *map(str, objs)]
+                proc = subprocess.run(cmd, capture_output=True, text=True)
+                log += proc.stdout + proc.stderr
+                if proc.returncode != 0:
+                    raise RuntimeError(f"nvcc failed ({proc.returncode}): "
+                                       f"{' '.join(cmd)}\n{log}")
+                os.replace(tmp, lib)
+            finally:
+                for f in (*objs, tmp):
+                    f.unlink(missing_ok=True)
             return BuildResult(lib, True, time.perf_counter() - t0, log)
         finally:
             fcntl.flock(lock, fcntl.LOCK_UN)

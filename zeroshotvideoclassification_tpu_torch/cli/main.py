@@ -1,12 +1,16 @@
-"""Training entry point with reference CLI parity, on one GPU.
+"""Training and evaluation entry point with reference CLI parity, on one GPU.
 
-Counterpart of zeroshotvideoclassification_tpu/cli/main.py for the part of
-Experiment that trains: build the datasets, then per epoch set the learning
-rate from the MultiStepLR schedule, iterate the host pipeline (seeded with
-seed + epoch, sample-capped like reference/main.py:208), move each host
-batch to the device (pinned H2D + the K1 transform), take one train step
-(train/step.py: K2 forward and backward in every epilogue, guarded Adam),
-log every `log_every` steps, and print the reference's per-epoch lines.
+Counterpart of zeroshotvideoclassification_tpu/cli/main.py: build the
+datasets, then per epoch set the learning rate from the MultiStepLR
+schedule, iterate the host pipeline (seeded with seed + epoch,
+sample-capped like reference/main.py:208), move each host batch to the
+device (pinned H2D + the transform: K1 for videos, the antialiased
+transform or K4 for still images), take one train step (train/step.py: K2
+forward and backward in every epilogue, guarded Adam), log every
+`log_every` steps; then evaluate every test table zero-shot (full set +
+the 10-split protocol), track the best mean accuracy, and print the
+reference's per-epoch lines. A still-image training table (--dataset
+sun2both: train on SUN, test on videos) trains with the halved batch.
 
   python -m zeroshotvideoclassification_tpu_torch.cli.main \
       --dataset synthetic --class_total 8 --train_samples 64 \
@@ -14,13 +18,14 @@ log every `log_every` steps, and print the reference's per-epoch lines.
 
 The flags are the JAX trainer's (config.build_arg_parser, the same Config)
 plus --device, which defaults to cuda; asking for cuda without a GPU raises.
-What the port does not do yet raises NotImplementedError, naming its ROADMAP
-item, when it is asked for: --evaluate (P5), --resume / --weights / a
-pretrained asset / --checkpoint_every / --profile_dir (P6), --tp > 1 (P7),
+--evaluate runs the evaluation once on the weights the experiment holds
+(the seeded init: loading a checkpoint to evaluate waits for ROADMAP P6 and
+raises). What the port does not do yet raises NotImplementedError, naming
+its ROADMAP item, when it is asked for: --resume / --weights / a pretrained
+asset / --checkpoint_every / --profile_dir (P6), --tp > 1 (P7),
 --head linear / --clip_pool embedding / --fixconvs / --remat / c3d (P8),
-the still-image datasets (P9), and --steps_per_call > 1 / --save_samples /
---debug_nans (P11). The per-epoch zero-shot evaluation of the test tables
-(P5) and the best-accuracy checkpoint (P6) are not run either; every epoch
+and --steps_per_call > 1 / --save_samples / --debug_nans (P11). The
+best-accuracy checkpoint (P6) is not written; every epoch that improves
 says so.
 """
 
@@ -51,9 +56,15 @@ from zeroshotvideoclassification_tpu_torch.data.pipeline import (
     HostPipeline,
     device_batch,
 )
+from zeroshotvideoclassification_tpu_torch.eval import (
+    compute_accuracy,
+    extract_embeddings,
+    split_protocol,
+)
 from zeroshotvideoclassification_tpu_torch.models import get_network
 from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
 from zeroshotvideoclassification_tpu_torch.train import (
+    eval_step,
     make_optimizer,
     make_train_step,
     multistep_lr,
@@ -70,7 +81,6 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError for every request the port cannot honour
     yet, naming the ROADMAP item that will."""
     asked = [
-        (config.evaluate, "--evaluate (zero-shot evaluation)", "P5"),
         (config.resume, "--resume", "P6"),
         (config.weights and config.weights != "none",
          "--weights (warm start)", "P6"),
@@ -82,8 +92,6 @@ def check_ported(config: Config) -> None:
          f"--clip_pool {config.clip_pool}", "P8"),
         (config.fixconvs, "--fixconvs", "P8"),
         (config.remat, "--remat", "P8"),
-        ("image" in config.dataset or "sun" in config.dataset,
-         f"--dataset {config.dataset} (still images)", "P9"),
         (config.steps_per_call > 1, "--steps_per_call > 1", "P11"),
         (config.save_samples, "--save_samples", "P11"),
         (config.debug_nans, "--debug_nans", "P11"),
@@ -104,8 +112,37 @@ def check_ported(config: Config) -> None:
                     f"random init")
 
 
+def eval_batch_size(global_bs: int, n_clips: int, n_data: int,
+                    process_count: int, table_len: int,
+                    clip_budget: int) -> int:
+    """Videos per global eval dispatch.
+
+    Starts from the reference's per-video batch scaled down by clips/video
+    (dataset.py:75,131) — a GPU-memory-motivated scale-down — then floors the
+    CLIP count per device at ``clip_budget``: the forward amortizes with
+    batch and eval numerics are per-sample (running-stat BN), so a bigger
+    batch only changes the zero-weight tail padding. Rounded up to a
+    multiple of lcm(n_data, process_count) so batches both shard evenly over
+    the devices and split evenly across processes (both 1 in this port
+    until several GPUs are), then capped at the table size (same rounding)
+    so tiny test sets don't dispatch mostly padding.
+
+    clip_budget == 0 restores the reference batch sizing EXACTLY (no clip
+    floor and no tiny-table cap — only the divisibility rounding).
+    """
+    n_clips = max(n_clips, 1)
+    bs = max(global_bs // n_clips, 1)
+    mult = n_data * process_count // np.gcd(n_data, process_count)
+    if clip_budget == 0:
+        return ((bs + mult - 1) // mult) * mult
+    want_clips = clip_budget * n_data
+    bs = max(bs, (want_clips + n_clips - 1) // n_clips)
+    bs = ((bs + mult - 1) // mult) * mult
+    return min(bs, ((table_len + mult - 1) // mult) * mult)
+
+
 class Experiment:
-    """Bundles model, optimizer, step and logging for one training run."""
+    """Bundles model, optimizer, steps and logging for one run."""
 
     def __init__(self, config: Config,
                  datasets: Dict[str, List[VideoTable]], device="cuda"):
@@ -120,9 +157,10 @@ class Experiment:
         torch.backends.cudnn.benchmark = True
         self.global_bs = config.bs  # one device
         train_tables = datasets.get("training") or []
-        if train_tables and train_tables[0].loader == "image":
-            raise NotImplementedError(
-                "still-image training tables are not ported yet (ROADMAP P9)")
+        self.train_bs = self.global_bs
+        if (train_tables and train_tables[0].loader == "image"
+                and config.class_total != 0):
+            self.train_bs = self._image_train_batch()
         self.model = get_network(config)
         init_weights(self.model, torch.Generator().manual_seed(config.seed))
         self.model = self.model.to(device=self.device,
@@ -137,21 +175,33 @@ class Experiment:
             print(f"WARNING: no pretrained asset for {config.network!r} "
                   f"under {config.pretrained_dir!r} — training from random "
                   f"init (pass --nopretrained to silence this)")
-        # de-dup the experiment dir with a _N suffix (reference/main.py:94-97)
         base = config.savename(1)
-        self.savename, count = base, 1
-        while os.path.exists(self.savename):
-            self.savename = base + f"_{count}"
-            count += 1
+        if config.evaluate:
+            # --evaluate points at the run's best checkpoint and logs to an
+            # evaluation/ subdir (reference/main.py:102-104)
+            ckpt = os.path.join(base, "checkpoint.npz")
+            if os.path.exists(ckpt):
+                raise NotImplementedError(
+                    f"loading the checkpoint {ckpt} to evaluate it is not "
+                    f"ported yet (ROADMAP P6)")
+            print(f"WARNING: no checkpoint at {ckpt}; evaluating fresh init")
+            self.savename = os.path.join(base, "evaluation")
+        else:
+            # de-dup the experiment dir with a _N suffix
+            # (reference/main.py:94-97)
+            self.savename, count = base, 1
+            while os.path.exists(self.savename):
+                self.savename = base + f"_{count}"
+                count += 1
         os.makedirs(self.savename, exist_ok=True)
         self.log = MetricsLogger(self.savename)
-        self.best_acc = None  # set by the zero-shot evaluation (ROADMAP P5)
+        self.best_acc = 0.0
 
     # ------------------------------------------------------------- train ----
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
         cfg = self.config
         table = self.datasets["training"][0]
-        global_bs = self.global_bs
+        global_bs = self.train_bs
         pipe = HostPipeline(table, cfg, global_bs, seed=cfg.seed + epoch)
         class_embed = torch.from_numpy(
             np.asarray(table.class_embed, np.float32)).to(self.device)
@@ -216,12 +266,77 @@ class Experiment:
         return {"loss": loss, "train_accuracy": acc,
                 "clips_per_sec": clips / max(total_t, 1e-9)}
 
+    def _image_train_batch(self) -> int:
+        """The halved SUN image-train batch.
+
+        The reference halves the image-train batch (dataset.py:26:
+        `opt.bs // 2 if ... 'image' in opt.dataset ...`) — each SUN sample
+        inflates to n_clips*clip_len synthetic frames, so memory per sample
+        doubles vs a video clip."""
+        return max(self.config.bs // 2, 1)
+
+    # -------------------------------------------------------------- eval ----
+    def evaluate(self, table: VideoTable, epoch: int) -> Dict[str, float]:
+        cfg = self.config
+        eval_bs = eval_batch_size(self.global_bs, table.n_clips, 1, 1,
+                                  len(table), cfg.eval_clip_budget)
+        pipe = HostPipeline(table, cfg, eval_bs, seed=cfg.seed)
+        source = pipe
+        if cfg.progressbar:
+            try:
+                from tqdm import tqdm
+
+                source = tqdm(pipe, total=len(pipe),
+                              desc="Extracting features...")
+            except ImportError:
+                pass
+        batches = (device_batch(h, table.n_clips, cfg.clip_len,
+                                transform_dtype(cfg), self.device)
+                   for h in source)
+        self.model.eval()  # BN running statistics; the train step sets train
+        pred, true_e, true_l = extract_embeddings(
+            lambda x: eval_step(self.model, x), batches)
+        acc, acc5 = compute_accuracy(pred, table.class_embed, true_e,
+                                     self.device)
+        self.log.scalar(f"{table.name}/Accuracy", acc, epoch)
+        self.log.scalar(f"{table.name}/Accuracy_Top5", acc5, epoch)
+        self.log.csv_append(f"{table.name}_accuracy.csv",
+                            "%d, %.1f,%.1f" % (epoch, acc, acc5))
+        res = f"{table.name.upper()} Epoch {epoch}: Test accuracy: {acc:2.1f}%."
+        out = {"accuracy": acc, "accuracy_top5": acc5}
+        # Declared parity deviation: the reference runs the 10-seeded
+        # half-class split protocol unconditionally (reference/main.py:278).
+        # With <4 classes a "half split" is 1 class (top-1 accuracy is
+        # trivially 100%) and top-5 is meaningless, so tiny smoke/fixture
+        # runs skip it; any real dataset (51+ classes) takes the reference
+        # path.
+        if cfg.split == -1 and len(table.classes) >= 4:
+            sp = split_protocol(pred, table.class_embed, true_l, true_e,
+                                device=self.device)
+            out.update(sp)
+            self.log.scalar(f"{table.name}/AccSplit_Mean",
+                            sp["accuracy_split_mean"], epoch)
+            self.log.scalar(f"{table.name}/AccSplit_Std",
+                            sp["accuracy_split_std"], epoch)
+            self.log.scalar(f"{table.name}/AccSplit_Mean_Top5",
+                            sp["accuracy_split_top5_mean"], epoch)
+            self.log.csv_append(
+                f"{table.name}_accuracy_splits.csv",
+                "%d, %.1f,%.1f,%.1f,%.1f" % (
+                    epoch, sp["accuracy_split_mean"], sp["accuracy_split_std"],
+                    sp["accuracy_split_top5_mean"], sp["accuracy_split_top5_std"]))
+            res += " -- Split accuracy %2.1f%% (+-%.1f) on %d classes" % (
+                sp["accuracy_split_mean"], sp["accuracy_split_std"],
+                sp["n_split_classes"])
+        print(colored(res, "green"))
+        return out
+
     # --------------------------------------------------------------- loop ---
     def run(self) -> Dict[str, float]:
         cfg = self.config
         trainsamples = (len(self.datasets["training"][0])
                         if self.datasets["training"] else 0)
-        if self.datasets["training"]:
+        if not cfg.evaluate and self.datasets["training"]:
             # run-config stamp file (reference/main.py:333-335)
             n_classes = len(self.datasets["training"][0].classes)
             stamp = os.path.join(
@@ -235,17 +350,25 @@ class Experiment:
                   f"CLIP_LEN {cfg.clip_len} N_CLIPS {cfg.n_clips} "
                   f"OVERLAP {cfg.class_overlap} SAMPLES {trainsamples}")
             t0 = time.time()
-            if self.datasets["training"]:
+            if not cfg.evaluate and self.datasets["training"]:
                 summary.update(self.train_one_epoch(epoch))
-            names = [t.name for t in self.datasets["testing"]]
-            if names:
-                print(f"NOT EVALUATED: zero-shot evaluation of {names} and "
-                      f"the best-accuracy checkpoint are not ported yet "
-                      f"(ROADMAP P5, P6)", file=sys.stderr)
-            best = ("n/a (not evaluated)" if self.best_acc is None
-                    else "%.1f" % self.best_acc)
-            print("----- Epoch %d done in %.2f min. Best accuracy %s"
-                  % (epoch, (time.time() - t0) / 60, best))
+            accuracies = []
+            for table in self.datasets["testing"]:
+                r = self.evaluate(table, epoch)
+                accuracies.append(r["accuracy"])
+                summary[f"{table.name}_accuracy"] = r["accuracy"]
+            mean_acc = float(np.mean(accuracies)) if accuracies else 0.0
+            improved = mean_acc > self.best_acc
+            if improved:
+                self.best_acc = mean_acc
+                if not cfg.evaluate:  # --evaluate is read-only
+                    print(f"NOT SAVED: the best-accuracy checkpoint "
+                          f"(mean accuracy {mean_acc:.1f}) is not ported "
+                          f"yet (ROADMAP P6)", file=sys.stderr)
+            print("----- Epoch %d done in %.2f min. Best accuracy %.1f"
+                  % (epoch, (time.time() - t0) / 60, self.best_acc))
+            if cfg.evaluate:
+                break
         summary["best_accuracy"] = self.best_acc
         self.log.close()
         return summary

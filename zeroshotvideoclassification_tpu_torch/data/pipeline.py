@@ -22,7 +22,10 @@ host_batch packs a list of paths into one batch with it. device_batch is
 the counterpart of the JAX device_batch: the uint8 canvas crosses from
 pinned memory without blocking, the transform (K1 on a GPU, its plain
 version on the CPU) writes [B, nc*cl, S, S, 3] in the compute dtype, and
-the result is viewed as [B, nc, cl, S, S, 3].
+the result is viewed as [B, nc, cl, S, S, 3]. A still-image batch (SUN)
+carries one image per sample and goes to the antialiased transform when it
+ships a trajectory (Config.sun_antialias, the default), else to the 2-tap
+image-motion transform (K4 on a GPU, its plain version on the CPU).
 """
 
 
@@ -43,7 +46,11 @@ from zeroshotvideoclassification_tpu_torch.data.transform_params import (
     make_transform_params,
     resample_indices,
 )
+from zeroshotvideoclassification_tpu_torch.ops.resample import (
+    fused_image_motion_transform_aa,
+)
 from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+    image_motion_transform,
     video_transform,
 )
 
@@ -446,13 +453,28 @@ def device_batch(host_batch, n_clips: int, clip_len: int,
                  out_dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
     """HostBatch -> {'x': [B, nc, cl, S, S, 3] out_dtype, 'z', 'label',
     'weight'} on `device`."""
-    if host_batch.image_mode:
-        raise NotImplementedError("the still-image (SUN) transform is not "
-                                  "ported yet")
     device = torch.device(device)
     canvas = _to_device(host_batch.canvas, device)
-    taps = [_to_device(getattr(host_batch, k), device) for k in _TAPS]
-    x = video_transform(canvas, *taps, out_dtype=out_dtype)
+    if host_batch.image_mode:
+        from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+            CH_OFFSET,
+            CH_SCALE,
+        )
+
+        if host_batch.trajectory is not None:
+            # antialiased (PIL-parity) path: weights derived on the device
+            # from the integer trajectory
+            x = fused_image_motion_transform_aa(
+                canvas, _to_device(host_batch.trajectory, device),
+                _to_device(host_batch.img_hw, device), CH_SCALE, CH_OFFSET,
+                crop_size=host_batch.crop_size, out_dtype=out_dtype)
+        else:
+            taps = [_to_device(getattr(host_batch, k), device) for k in _TAPS]
+            x = image_motion_transform(canvas, *taps, CH_SCALE, CH_OFFSET,
+                                       out_dtype=out_dtype)
+    else:
+        taps = [_to_device(getattr(host_batch, k), device) for k in _TAPS]
+        x = video_transform(canvas, *taps, out_dtype=out_dtype)
     b, _, s, _, c = x.shape
     return {
         "x": x.reshape(b, n_clips, clip_len, s, s, c),

@@ -16,6 +16,9 @@ numpy arrays, so that parameters and BN statistics after some training steps
 can be compared leaf by leaf. adam_from_jax / adam_to_jax carry Adam's
 moments and count across (optax's mu / nu / count <-> exp_avg / exp_avg_sq /
 step of train/optimizer.GuardedAdam), in the same layouts as the parameters.
+conv_weight_from_jax / conv_weight_to_jax carry one conv weight across, e.g.
+the temporal conv op's (ops/temporal_conv.temporal_conv3 takes the JAX
+layout [3, 1, 1, Ci, Co]; a Conv3d holds [Co, Ci, 3, 1, 1]).
 Only numpy and torch are needed.
 """
 
@@ -74,10 +77,31 @@ def torch_key(path: str) -> str:
                      f"(ported: r2plus1d_18/r3d_18/mc3_18 + the mlp head)")
 
 
+def conv_weight_from_jax(w) -> torch.Tensor:
+    """A JAX conv weight [D, H, W, Ci, Co] (DHWIO) -> a Conv3d weight
+    [Co, Ci, D, H, W] (OIDHW), float32, a contiguous copy."""
+    a = np.asarray(w, np.float32)
+    if a.ndim != 5:
+        raise ValueError(f"a DHWIO conv weight has 5 axes, got {a.shape}")
+    return torch.tensor(np.ascontiguousarray(a.transpose(4, 3, 0, 1, 2)))
+
+
+def conv_weight_to_jax(w: torch.Tensor) -> np.ndarray:
+    """A Conv3d weight [Co, Ci, D, H, W] -> the JAX layout [D, H, W, Ci, Co],
+    a contiguous float32 numpy array."""
+    if w.dim() != 5:
+        raise ValueError(f"an OIDHW conv weight has 5 axes, got "
+                         f"{tuple(w.shape)}")
+    a = w.detach().float().cpu().numpy()
+    return np.ascontiguousarray(a.transpose(2, 3, 4, 1, 0))
+
+
 def _to_torch(path: str, a: np.ndarray) -> torch.Tensor:
     a = np.asarray(a, np.float32)
     if path.endswith("/w"):
-        a = a.transpose(4, 3, 0, 1, 2) if a.ndim == 5 else a.T
+        if a.ndim == 5:
+            return conv_weight_from_jax(a)
+        a = a.T
     return torch.tensor(np.ascontiguousarray(a))  # a copy: JAX's are read-only
 
 
@@ -147,9 +171,12 @@ def to_jax(state_dict):
         if found is None:
             continue
         tree, path = found
-        a = t.detach().float().cpu().numpy()
-        if path.endswith("/w"):
-            a = a.transpose(2, 3, 4, 1, 0) if a.ndim == 5 else a.T
+        if path.endswith("/w") and t.dim() == 5:
+            a = conv_weight_to_jax(t)
+        else:
+            a = t.detach().float().cpu().numpy()
+            if path.endswith("/w"):
+                a = a.T
         node = trees[tree]
         *dirs, name = path.split("/")
         for d in dirs:

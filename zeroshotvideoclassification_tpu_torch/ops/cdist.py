@@ -1,12 +1,12 @@
-"""Cosine distances between embeddings and class embeddings, and the nearest
-class.
+"""Cosine distances between embeddings and class embeddings, the nearest
+class and the k nearest.
 
 Counterpart of zeroshotvideoclassification_tpu/ops/cdist.py:
-cosine_distances and nearest_class (topk_classes waits for the zero-shot
-evaluation), which are no Pallas kernels: one [N, D] x [D, C] float32
-product, here torch.matmul. It must run in full float32: class embeddings
-can lie ~1e-3 apart in cosine distance, and TF32's ~1e-3 relative error
-could flip a ranking, so a CUDA call with TF32 matmuls enabled raises.
+cosine_distances, nearest_class and topk_classes, which are no Pallas
+kernels: one [N, D] x [D, C] float32 product, here torch.matmul. It must
+run in full float32: class embeddings can lie ~1e-3 apart in cosine
+distance, and TF32's ~1e-3 relative error could flip a ranking, so a CUDA
+call with TF32 matmuls enabled raises.
 """
 
 from __future__ import annotations
@@ -34,3 +34,12 @@ def nearest_class(pred: torch.Tensor, class_embed: torch.Tensor
     """argmin cosine distance -> [N] int32 class indices."""
     return torch.argmin(cosine_distances(pred, class_embed),
                         dim=1).to(torch.int32)
+
+
+def topk_classes(pred: torch.Tensor, class_embed: torch.Tensor,
+                 k: int = 5) -> torch.Tensor:
+    """The k nearest classes by cosine distance, nearest first -> [N, k]
+    int32 (k clamps to the class count, reference/main.py:317-319)."""
+    d = cosine_distances(pred, class_embed)
+    k = min(k, class_embed.shape[0])
+    return torch.topk(-d, k, dim=1).indices.to(torch.int32)
