@@ -34,8 +34,10 @@ result line) if it fails:
      r2plus1d_18 produces at 16 clips, f32 and bf16, with and without
      residual and ReLU: dx and d_residual (f32 within 2e-6, bf16 within 1
      ulp), the four per-channel gradients within rtol 1e-4 of a float64
-     reference, two runs bit-identical; kernel time beside the plain time,
-     summed over one backward pass. The forward output that feeds each
+     reference, two runs bit-identical; the wrapper's time beside the time
+     of its two launches alone (results allocated once) and of the second
+     pass alone, and the plain time, summed over one backward pass. The
+     forward output that feeds each
      backward is K2 forward at the training path's shapes: it is held
      against its plain version and timed there too (f32 within 2e-6, bf16
      within 1 ulp; summed over one 16-clip forward);
@@ -76,7 +78,9 @@ result line) if it fails:
      midplane shapes, f32 (atol/rtol 1e-5) and bf16 (2 ulp beyond the
      float32 bar, which counts where an output cancels to ~0), its gradients
      once against the plain version's, and its time beside the plain
-     version's and F.conv3d's (cuDNN) on the same tensors.
+     version's and F.conv3d's (cuDNN) on the same tensors; for each shape
+     the kernel and the staging path it took (TMA, cp.async, 2-byte loads)
+     and its TFLOP/s against the peak for its type.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
 each main path that launches it ("path": "serve", "train" or "train_sun";
@@ -440,12 +444,15 @@ def phase_k2_bwd(calls, dev, copy_gbs):
         bn_apply_relu_bwd_plain,
         bn_apply_relu_cuda,
         bn_apply_relu_plain,
+        bwd_plan,
+        bwd_prepare,
     )
 
     names = ("dx", "d_scale", "d_bias", "d_mean", "d_var", "d_res")
     g = torch.Generator(device=dev).manual_seed(1)
     out = {"max_abs_err": 0.0, "sum_max_rel_err": 0.0, "shapes": [],
-           "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0}
+           "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
+           "launches_ms": 0.0, "pass2_ms": 0.0}
     fwd = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0,
            "bytes": 0, "flops": 0}
     shapes = sorted({k[0] for k in calls}, key=lambda s: -math.prod(s))
@@ -538,17 +545,29 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                     ms = time_ms(lambda: bn_apply_relu_bwd_cuda(*args))
                     plain = time_ms(lambda: bn_apply_relu_bwd_plain(*args),
                                     reps=3)
+                    # the two launches alone, on results allocated once (8
+                    # calls per pair of events, so that the queue hides the
+                    # host), and the second pass alone
+                    launch, _ = bwd_prepare(*args)
+                    dev_ms = time_ms(
+                        lambda: [launch() for _ in range(8)]) / 8
+                    p2_ms = time_ms(
+                        lambda: [launch(2) for _ in range(8)]) / 8
+                    plan = bwd_plan(x.numel(), c, x.element_size(), True)
                     by, fl = epilogue_bytes_flops(shape, x.element_size(),
                                                   res, relu, True)
                     row = {"shape": list(shape), "dtype": str(dt)[6:],
                            "residual": res, "relu": relu, "calls": n,
                            "max_abs_err": err, "sum_rel_err": rel, "ms": ms,
-                           "plain_ms": plain,
-                           "GB_per_s": by / 1e9 / (ms / 1e3)}
+                           "plain_ms": plain, "launches_ms": dev_ms,
+                           "pass2_ms": p2_ms, "plan": plan,
+                           "GB_per_s": by / 1e9 / (dev_ms / 1e3)}
                     out["shapes"].append(row)
                     if dt == torch.bfloat16:
                         out["ms"] += n * ms
                         out["plain_ms"] += n * plain
+                        out["launches_ms"] += n * dev_ms
+                        out["pass2_ms"] += n * p2_ms
                         out["bytes"] += n * by
                         out["flops"] += n * fl
                         fwd["ms"] += n * f_ms
@@ -561,15 +580,19 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                         f"{f_ms:.3f} ms  plain {f_plain:.3f} ms")
                     say(f"[K2 bwd] {'x'.join(map(str, shape))} "
                         f"{row['dtype']} res={int(res)} relu={int(relu)} "
-                        f"x{n}: dx err {err:.3g}, sums rel {rel:.2g}  kernel "
-                        f"{ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  plain "
-                        f"{plain:.3f} ms")
+                        f"x{n}: dx err {err:.3g}, sums rel {rel:.2g}  wrapper "
+                        f"{ms:.3f} ms, launches alone {dev_ms:.4f} ms "
+                        f"({row['GB_per_s']:.0f} GB/s; {plan['path']}, "
+                        f"{plan['col_tiles'] * plan['chunks']} blocks of "
+                        f"{plan['threads']}), pass 2 alone {p2_ms * 1e3:.1f} "
+                        f"us  plain {plain:.3f} ms")
             del x, r, dy, y, got, again, want
         del x32, r32, dy32
     say(f"[K2 bwd] all {len(shapes)} shapes x 8 variants agree and repeat "
-        f"bit for bit; per bf16 backward pass at {TRAIN_BS} clips: kernel "
-        f"{out['ms']:.3f} ms, plain {out['plain_ms']:.3f} ms over "
-        f"{sum(calls.values())} epilogues; "
+        f"bit for bit; per bf16 backward pass at {TRAIN_BS} clips: wrapper "
+        f"{out['ms']:.3f} ms, the launches alone {out['launches_ms']:.3f} "
+        f"ms of which pass 2 {out['pass2_ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms over {sum(calls.values())} epilogues; "
         + bound(out, out["bytes"], out["flops"], copy_gbs))
     say(f"[K2 fwd, train] the same shapes and variants agree; per bf16 "
         f"forward at {TRAIN_BS} clips: kernel {fwd['ms']:.3f} ms, plain "
@@ -1189,6 +1212,7 @@ def phase_k3(dev, copy_gbs, smi):
         temporal_conv3,
         temporal_conv3_cuda,
         temporal_conv3_plain,
+        tile_plan,
     )
 
     g = torch.Generator(device=dev).manual_seed(2)
@@ -1236,7 +1260,10 @@ def phase_k3(dev, copy_gbs, smi):
             rows = shape[0] * shape[1] * shape[2] * shape[3]
             nbytes = (x.numel() + w.numel() + rows * co) * x.element_size()
             flops = 2 * rows * 3 * ci * co
+            plan = tile_plan(shape[0], shape[1], shape[2] * shape[3], ci, co,
+                             dt, 16 if x.data_ptr() % 16 == 0 else 2)
             row = {"shape": list(shape), "co": co, "dtype": str(dt)[6:],
+                   "kernel": plan["kernel"], "staging": plan["staging"],
                    "max_abs_err": err, "bf16_ulps": ulps, "ms": ms,
                    "plain_ms": plain, "library_ms": lib,
                    "vs_library_max_abs": lib_err, "bytes": nbytes,
@@ -1248,9 +1275,13 @@ def phase_k3(dev, copy_gbs, smi):
             say(f"[K3] {'x'.join(map(str, shape))} -> {co} {row['dtype']}: "
                 f"err {err:.3g} ("
                 + ("" if ulps is None else f"{ulps:.2f} bf16 ulp; ")
-                + f"{lib_err:.3g} from F.conv3d)  kernel {ms:.3f} ms "
-                f"({row['TFLOP_per_s']:.1f} TFLOP/s)  plain {plain:.3f} ms  "
-                f"F.conv3d {lib:.3f} ms; " + text)
+                + f"{lib_err:.3g} from F.conv3d)  {plan['kernel']} kernel, "
+                f"{plan['staging']} staging, {plan['blocks']} blocks of "
+                f"{plan['threads']}: {ms:.3f} "
+                f"ms ({row['TFLOP_per_s']:.1f} TFLOP/s = "
+                f"{100 * row['TFLOP_per_s'] * 1e12 / peak:.1f}% of the "
+                f"{peak / 1e12:.0f} TFLOP/s peak)  plain {plain:.3f} ms  "
+                f"F.conv3d {lib:.3f} ms ({ms / lib:.2f}x); " + text)
             del x, w, xv, wv
         del x32, w32
     # the gradients once, at a ragged shape in float32: the op's backward

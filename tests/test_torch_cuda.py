@@ -23,6 +23,7 @@ from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     bn_apply_relu_bwd_plain,
     bn_apply_relu_cuda,
     bn_apply_relu_plain,
+    bwd_plan,
 )
 from zeroshotvideoclassification_tpu_torch.data.stillimages import (
     CH_OFFSET,
@@ -44,6 +45,7 @@ from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
     temporal_conv3,
     temporal_conv3_cuda,
     temporal_conv3_plain,
+    tile_plan,
 )
 from torch_helpers import (
     bf16_ulps,
@@ -191,6 +193,96 @@ def test_k3_matches_plain(cuda, shape, co, dtype):
         assert bf16_ulps(got, want) <= 2.0
 
 
+# bf16 only: (x shape, Co, kernel, staging) of every path of the tensor-core
+# kernels: TMA, 4-byte cp.async and 2-byte loads in the resident and in the
+# streamed kernel, the resident kernel's bulk copy with a 4- or 2-byte
+# re-layout (one and several tiles a frame, the last one short), 7x7 positions with T = 2 (a 64-row
+# tile mostly empty), row counts that are no multiple of the tile, Co ragged
+# and past one 64-channel tile, a tap split into two groups (Ci 176)
+K3_PATHS = [
+    ((2, 4, 9, 9, 144), 64, "resident", "tma"),
+    ((2, 3, 9, 9, 230), 128, "resident", "cp.async4"),
+    ((2, 3, 9, 9, 45), 64, "resident", "scalar"),
+    ((2, 3, 12, 12, 230), 128, "resident", "bulk4"),
+    ((1, 5, 8, 8, 230), 70, "resident", "bulk4"),
+    ((2, 4, 12, 12, 45), 64, "resident", "bulk2"),
+    ((1, 1, 8, 8, 45), 64, "resident", "bulk2"),
+    ((4, 2, 7, 7, 144), 64, "resident", "tma"),
+    ((3, 5, 13, 11, 176), 72, "streamed", "tma"),
+    ((2, 3, 9, 9, 288), 128, "streamed", "tma"),
+    ((2, 3, 9, 9, 460), 256, "streamed", "cp.async4"),
+    ((4, 2, 7, 7, 921), 512, "streamed", "scalar"),
+    ((1, 1, 3, 3, 1152), 70, "streamed", "tma"),
+]
+
+
+def _assert_k3_bf16(x, w):
+    """The kernel against the plain version at the op's bf16 bar: 2 bf16 ulp
+    beyond the float32 bar of 1e-5. Both round one float32 sum of exact
+    products to bf16; the sums differ by their order and by the tensor
+    cores' truncating adds (~1e-6 for results of O(1)), which is many bf16
+    ulp of an output that cancels to 1e-5 and nothing beside one of O(1).
+    -> the kernel's result."""
+    want = temporal_conv3_plain(x, w)
+    got = temporal_conv3_cuda(x, w)
+    torch.cuda.synchronize()
+    assert got.dtype == torch.bfloat16 and got.shape == want.shape
+    diff = (got.float() - want.float()).abs()
+    assert bf16_ulps((diff - 1e-5).clamp_min(0) + want.float(), want) <= 2.0
+    return got
+
+
+@pytest.mark.parametrize("shape,co,kernel,staging", K3_PATHS)
+def test_k3_tensor_core_paths(cuda, shape, co, kernel, staging):
+    """Each staging path and both tensor-core kernels against the plain
+    version."""
+    n, t, h, wd, ci = shape
+    plan = tile_plan(n, t, h * wd, ci, co)
+    assert (plan["kernel"], plan["staging"]) == (kernel, staging)
+    _assert_k3_bf16(*_tconv_operands(cuda, shape, co, torch.bfloat16, seed=3))
+
+
+@pytest.mark.parametrize("offset,staging", [
+    (1, ("scalar", "scalar")), (2, ("cp.async4", "cp.async4")),
+    (8, ("tma", "tma"))])
+@pytest.mark.parametrize("ci", [144, 288])
+def test_k3_takes_a_misaligned_view(cuda, ci, offset, staging):
+    """x as a contiguous view `offset` elements into a buffer: 2- and 4-byte
+    aligned pointers narrow the staging copies (the plan says which), the
+    result does not change by a bit."""
+    shape, co = (2, 3, 9, 9, ci), 64
+    x, w = _tconv_operands(cuda, shape, co, torch.bfloat16, seed=4)
+    buf = torch.empty(x.numel() + 16, dtype=x.dtype, device=cuda)
+    view = buf[offset:offset + x.numel()].view(shape)
+    view.copy_(x)
+    assert view.is_contiguous() and view.data_ptr() % 16 == (2 * offset) % 16
+    align = view.data_ptr() & -view.data_ptr()
+    plan = tile_plan(2, 3, 81, ci, co, x_align=min(align, 16))
+    assert plan["staging"] == staging[0 if ci == 144 else 1]  # resident?
+    # the staging path changes how x reaches shared memory and nothing of
+    # the arithmetic: bit for bit the aligned call's result
+    assert torch.equal(_assert_k3_bf16(view, w), temporal_conv3_cuda(x, w))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_k3_at_random_shapes(cuda, seed):
+    """Shapes drawn from a seed, small enough for any tile to be ragged in
+    every direction (one position, one channel, one frame included): both
+    dtypes against the plain version at the op's bars."""
+    rng = np.random.default_rng(100 + seed)
+    shape = (int(rng.integers(1, 4)), int(rng.integers(1, 6)),
+             int(rng.integers(1, 13)), int(rng.integers(1, 13)),
+             int(rng.choice([1, 2, 7, 8, 16, 24, 45, 64, 100, 144, 176, 230,
+                             256, 264, 288, 300])))
+    co = int(rng.choice([1, 5, 8, 63, 64, 65, 128, 140]))
+    x, w = _tconv_operands(cuda, shape, co, torch.float32, seed=seed)
+    got = temporal_conv3_cuda(x, w)
+    torch.cuda.synchronize()
+    torch.testing.assert_close(got, temporal_conv3_plain(x, w), atol=1e-5,
+                               rtol=1e-5)
+    _assert_k3_bf16(x.bfloat16(), w.bfloat16())
+
+
 def test_k3_gradients_and_refusals(cuda):
     """The op differentiates on the card (forward by the kernel, backward by
     the library convolution's gradient): within 1e-4 of the plain version's
@@ -306,7 +398,7 @@ def _bwd_ref64(x, y, dy, scale, mean, var, relu, eps=1e-5):
     return s2, s1, -a * s1, -0.5 * scale.double() * sinv * sinv * s2
 
 
-@pytest.mark.parametrize("c", [45, 921])
+@pytest.mark.parametrize("c", [45, 230, 921])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
 @pytest.mark.parametrize("with_res", [False, True])
 @pytest.mark.parametrize("relu", [True, False])
@@ -325,6 +417,91 @@ def test_k2_backward_matches_plain(cuda, c, dtype, with_res, relu):
     assert bn_apply_relu_bwd_cuda.launches == before + 2
     _check_bwd(got, want, _bwd_ref64(x, y, dy, scale, mean, var, relu), dtype)
     for name, a, b in zip(BWD_NAMES, got, again):  # bit-reproducible
+        assert (a is None and b is None) or torch.equal(a, b), name
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["x", "y", "dy"])
+def test_k2_backward_takes_a_misaligned_view(cuda, dtype, which):
+    """One of x, y, dy as a contiguous view one element into a buffer (not
+    16-byte aligned): the wrapper takes the one-element-a-thread path (its
+    plan says so) and the results are those of the aligned call, bit for
+    bit in dx and d_res, within the sums' bar in the per-channel ones."""
+    shape = (4, 3, 9, 11, 230)
+    x, stats, r = _bn_operands(cuda, shape, dtype, True)
+    scale, bias, mean, var = stats
+    y = bn_apply_relu_cuda(x, *stats, r, True)
+    dy = torch.randn(shape, device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(6)).to(dtype)
+    want = bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, True, True)
+    ops = {"x": x, "y": y, "dy": dy}
+    buf = torch.empty(x.numel() + 8, dtype=dtype, device=cuda)
+    view = buf[1:1 + x.numel()].view(shape)
+    view.copy_(ops[which])
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    ops[which] = view
+    assert bwd_plan(x.numel(), 230, x.element_size(), False)["path"] == (
+        "scalar")
+    got = bn_apply_relu_bwd_cuda(ops["x"], ops["y"], ops["dy"], scale, mean,
+                                 var, True, True)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], want[0]) and torch.equal(got[5], want[5])
+    _check_bwd(got, want, _bwd_ref64(x, y, dy, scale, mean, var, True), dtype)
+
+
+def test_k2_backward_constants_equal_torch_rsqrt_bit_for_bit(cuda):
+    """The kernels compute sinv = rsqrt(var + eps), a = scale * sinv and
+    mean * sinv themselves. With dy = 1 and no ReLU, dx is `a` and d_bias the
+    row count (exact), so d_mean = -a * rows and d_var's factor show the
+    kernels' constants: all equal PyTorch's float32 values bit for bit."""
+    c, rows = 921, 64
+    g = torch.Generator(cuda).manual_seed(7)
+    scale = torch.rand(c, device=cuda, generator=g) * 1.5 + 0.5
+    mean = torch.randn(c, device=cuda, generator=g)
+    var = torch.rand(c, device=cuda, generator=g) * 2.7 + 1e-3
+    x = mean.expand(rows, c).contiguous()  # x_hat = x * sinv - mean * sinv
+    dy = torch.ones((rows, c), device=cuda)
+    for eps in (1e-5, 1e-3):
+        dx, d_scale, d_bias, d_mean, d_var, _ = bn_apply_relu_bwd_cuda(
+            x, None, dy, scale, mean, var, False, False, eps)
+        torch.cuda.synchronize()
+        sinv = torch.rsqrt(var + eps)
+        a = scale * sinv
+        assert torch.equal(dx, a.expand(rows, c))
+        assert torch.equal(d_bias, torch.full_like(d_bias, rows))
+        assert torch.equal(d_mean, -a * d_bias)
+        # S2 = rows * (mean * sinv - mean * sinv): exactly zero only if the
+        # kernel's two products are the plain version's
+        assert torch.equal(d_scale, torch.zeros_like(d_scale))
+        want = bn_apply_relu_bwd_plain(x, None, dy, scale, mean, var, False,
+                                       False, eps)
+        for got_k, want_k in zip((dx, d_scale, d_bias, d_mean, d_var),
+                                 want):
+            assert torch.equal(got_k, want_k)
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_k2_backward_at_random_shapes(cuda, seed):
+    """(rows, C) drawn from a seed, down to one row and one channel, where
+    the folded view is wider than the tensor and the last folded row is
+    ragged: every variant against the plain version and the float64 sums."""
+    rng = np.random.default_rng(200 + seed)
+    c = int(rng.choice([1, 2, 3, 8, 45, 64, 100, 230, 513, 921, 1200]))
+    rows = int(rng.choice([1, 2, 7, 63, 500, 4097]))
+    dtype = (torch.float32, torch.bfloat16)[seed % 2]
+    relu, with_res = bool(rng.integers(0, 2)), bool(rng.integers(0, 2))
+    x, stats, r = _bn_operands(cuda, (rows, c), dtype, with_res, seed=seed)
+    scale, bias, mean, var = stats
+    y = bn_apply_relu_cuda(x, *stats, r, relu)
+    dy = torch.randn((rows, c), device=cuda,
+                     generator=torch.Generator(cuda).manual_seed(seed)
+                     ).to(dtype)
+    got = bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu, with_res)
+    again = bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu, with_res)
+    torch.cuda.synchronize()
+    want = bn_apply_relu_bwd_plain(x, y, dy, scale, mean, var, relu, with_res)
+    _check_bwd(got, want, _bwd_ref64(x, y, dy, scale, mean, var, relu), dtype)
+    for name, a, b in zip(BWD_NAMES, got, again):
         assert (a is None and b is None) or torch.equal(a, b), name
 
 

@@ -16,9 +16,6 @@ from zeroshotvideoclassification_tpu.ops.temporal_conv import (
 )
 from zeroshotvideoclassification_tpu_torch.models import bridge
 from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
-    TILE_CI,
-    TILE_CO,
-    TILE_ROWS,
     temporal_conv3,
     temporal_conv3_cuda,
     temporal_conv3_plain,
@@ -129,26 +126,85 @@ NETWORK_TCONVS = [(45, 64, 16 * 16 * 56 * 56), (144, 64, 16 * 16 * 56 * 56),
                   (921, 512, 16 * 2 * 7 * 7), (1152, 512, 16 * 2 * 7 * 7)]
 
 
-@pytest.mark.parametrize("ci,co,rows", NETWORK_TCONVS + [(8, 5, 97)])
-def test_tile_plan_covers_every_row_and_channel_once(ci, co, rows):
-    plan = tile_plan(1, 1, rows, ci, co)
-    assert plan["rows"] == rows and plan["threads"] == 256
+def _assert_plan_covers(plan, rows, ci, co):
+    """Every flat row, output channel and input channel lies in exactly one
+    tile, and no tile lies wholly outside."""
+    assert plan["rows"] == rows
+    cut, per_cut, tile = (plan["rows_per_cut"], plan["tiles_per_cut"],
+                          plan["tile_rows"])
+    assert rows % cut == 0 and plan["row_tiles"] == rows // cut * per_cut
     row_hits = np.zeros(rows, np.int64)
-    for i in range(plan["row_tiles"]):
-        row_hits[i * TILE_ROWS:(i + 1) * TILE_ROWS] += 1
+    for start in range(0, rows, cut):  # tiles restart at every cut
+        for i in range(per_cut):
+            row_hits[start + i * tile:min(start + (i + 1) * tile,
+                                          start + cut)] += 1
     co_hits = np.zeros(co, np.int64)
     for j in range(plan["co_tiles"]):
-        co_hits[j * TILE_CO:(j + 1) * TILE_CO] += 1
+        co_hits[j * plan["tile_co"]:(j + 1) * plan["tile_co"]] += 1
     ci_hits = np.zeros(ci, np.int64)
     for k in range(plan["ci_steps"]):
-        ci_hits[k * TILE_CI:(k + 1) * TILE_CI] += 1
+        ci_hits[k * plan["tile_ci"]:(k + 1) * plan["tile_ci"]] += 1
     assert (row_hits == 1).all() and (co_hits == 1).all()
     assert (ci_hits == 1).all()
-    # no tile lies wholly outside: the last of each axis starts inside
-    assert (plan["row_tiles"] - 1) * TILE_ROWS < rows
-    assert (plan["co_tiles"] - 1) * TILE_CO < co
-    assert (plan["ci_steps"] - 1) * TILE_CI < ci
-    assert tile_plan(2, 3, rows, ci, co)["rows"] == 6 * rows
+    assert (per_cut - 1) * tile < cut
+    assert (plan["co_tiles"] - 1) * plan["tile_co"] < co
+    assert (plan["ci_steps"] - 1) * plan["tile_ci"] < ci
+    assert plan["threads"] == plan["tile_rows"] * 2 <= 256
+    assert plan["smem_bytes"] <= 232448
+
+
+@pytest.mark.parametrize("ci,co,rows", NETWORK_TCONVS + [(8, 5, 97)])
+def test_tile_plan_covers_every_row_and_channel_once(ci, co, rows):
+    """The float32 plan (flat rows) and the bf16 plans (one frame of `rows`
+    positions, and 2 x 3 frames of them) cover the output exactly once; the
+    bf16 plan names the kernel by what fits in shared memory and the staging
+    path by Ci and x's alignment."""
+    plan = tile_plan(1, 1, rows, ci, co, torch.float32)
+    assert plan["kernel"] == "f32_cuda_core" and plan["threads"] == 256
+    _assert_plan_covers(plan, rows, ci, co)
+    for n, t in ((1, 1), (2, 3)):
+        plan = tile_plan(n, t, rows, ci, co)
+        _assert_plan_covers(plan, n * t * rows, ci, co)
+        # W's tile and four x tiles of 64 rows fit in 227 KB up to Ci = 256
+        assert plan["kernel"] == ("resident" if ci <= 256 else "streamed")
+        if plan["kernel"] == "resident":
+            bulk = plan["staging"].startswith("bulk")
+            assert plan["rows_per_cut"] == rows
+            assert (3 if bulk else 4) <= plan["ring"] <= 6
+            extra = (64 if plan["staging"] == "tma" else
+                     64 + -(-plan["tile_rows"] * ci * 2 // 16) * 16 if bulk
+                     else 0)
+            assert plan["smem_bytes"] == 1024 + plan["ci_pad"] // 64 * 8192 * (
+                3 + plan["ring"] * plan["wgs"]) + plan["wgs"] * 2048 + extra
+        else:
+            assert plan["rows_per_cut"] == rows and plan["tile_rows"] == 128
+    def want(align):
+        if ci % 8 == 0 and align >= 16:
+            return "tma"
+        narrow = "4" if ci % 2 == 0 and align >= 4 else "2"
+        plan = tile_plan(1, 1, rows, ci, co, x_align=align)
+        # one bulk copy per tile where its rows are an aligned run of x of a
+        # multiple of 16 bytes (resident kernel only)
+        if (plan["kernel"] == "resident" and align >= 16 and all(
+                r * ci * 2 % 16 == 0
+                for r in (rows, plan["tile_rows"],
+                          rows % plan["tile_rows"]))):
+            return "bulk" + narrow
+        return "cp.async4" if narrow == "4" else "scalar"
+
+    # a view at a 4- or 2-byte offset narrows the accesses
+    for align in (16, 4, 2):
+        assert tile_plan(1, 1, rows, ci, co, x_align=align)["staging"] == (
+            want(align))
+    if ci in (45, 230):  # the large ragged shapes of the network
+        assert want(16).startswith("bulk")
+
+
+@pytest.mark.parametrize("ci,staging", [(144, "tma"),
+                                        (230, "cp.async4"),
+                                        (921, "scalar"), (45, "scalar")])
+def test_tile_plan_names_the_staging_path(ci, staging):
+    assert tile_plan(16, 2, 49, ci, 64)["staging"] == staging
 
 
 def test_wrapper_dispatch_and_validation():

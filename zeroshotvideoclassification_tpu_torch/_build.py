@@ -1,8 +1,12 @@
 """Build the CUDA kernels in csrc/ at first use and load them with ctypes.
 
 All of csrc/*.cu compiles with nvcc into ONE shared library with a plain C
-interface (no PyTorch headers, so the build takes seconds), for sm_90a: one
-nvcc per source, all started together, then one link:
+interface (no PyTorch headers: the build takes seconds a source, and about
+half a minute for temporal_conv.cu's tensor-core kernel variants), for
+sm_90a (the `a` is what wgmma needs): one nvcc per source, all started
+together, then one link. Nothing is linked beyond the CUDA runtime: the one
+libcuda function a kernel needs (cuTensorMapEncodeTiled, for K3's TMA
+descriptors) is fetched through cudaGetDriverEntryPoint.
 
   nvcc -gencode arch=compute_90a,code=sm_90a -O3 -std=c++17 -Xcompiler -fPIC
        -Xptxas -v -c -o <name>.o csrc/<name>.cu          (each source)
@@ -50,11 +54,11 @@ SIGNATURES = {
     "zsvc_image_motion_transform_f32": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
     "zsvc_image_motion_transform_bf16": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
     "zsvc_temporal_conv3_f32": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
-    "zsvc_temporal_conv3_bf16": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
+    "zsvc_temporal_conv3_bf16": [_P] * 4 + [_I] * 10 + [_P],
     "zsvc_bn_apply_relu_f32": [_P] * 5 + [_LL, _I, _I, _P],
     "zsvc_bn_apply_relu_bf16": [_P] * 5 + [_LL, _I, _I, _P],
-    "zsvc_bn_bwd_f32": [_P] * 10 + [_LL] + [_I] * 5 + [_P],
-    "zsvc_bn_bwd_bf16": [_P] * 10 + [_LL] + [_I] * 5 + [_P],
+    "zsvc_bn_bwd_f32": [_P] * 6 + [_F] + [_P] * 4 + [_LL] + [_I] * 9 + [_P],
+    "zsvc_bn_bwd_bf16": [_P] * 6 + [_F] + [_P] * 4 + [_LL] + [_I] * 9 + [_P],
 }
 
 _lock = threading.Lock()

@@ -24,27 +24,44 @@
 //
 // BACKWARD. Replaces bn_pallas.py:_bwd (_bwd_kernel): with
 // g = dy * (y > 0) under ReLU (the mask read from the stored, already
-// rounded y), else g = dy, and x_hat = x * sinv[c] - (mean * sinv)[c]:
+// rounded y), else g = dy, sinv = rsqrt(var + eps), a = scale * sinv and
+// x_hat = x * sinv[c] - (mean * sinv)[c]:
 //
 //   dx = g * a[c]        d_residual = g (written only when asked for)
 //   S1[c] = sum g        S2[c] = sum g * x_hat          (float32)
+//   d_scale = S2   d_bias = S1   d_mean = -a * S1
+//   d_var = -1/2 * scale * sinv^2 * S2
 //
 // Bound: bytes. It reads x, y and dy and writes dx (and g) once, 4-5 passes
-// over the tensor; the plain PyTorch chain takes about twenty. The TPU
-// kernel carried S1/S2 from one step of its sequential grid to the next;
-// blocks of a GPU run in no order, so the sums take two kernels and no
+// over the tensor; the plain PyTorch chain takes about twenty. So the design
+// is about the memory system and about the host: two launches and nothing
+// else per call.
+//
+// The TPU kernel carried S1/S2 from one step of its sequential grid to the
+// next; blocks of a GPU run in no order, so the sums take two kernels and no
 // atomics. The tensor is seen as [rows, Wf] with Wf = m * C (m consecutive
-// [.., C] rows folded into one, so that Wf fills whole 256-thread blocks
-// whatever C is; the wrapper picks m). Pass 1: a thread owns one column j
-// (one channel, j % C) of one chunk of rows, walks its rows in order,
-// writes dx (and g) and leaves its two sums in partial[2][chunks][Wf].
-// Pass 2: for each channel, 32 threads each add every 32nd of the
-// chunks * m partial sums in index order, and one thread adds the 32
-// results in order. Every sum has one fixed order, so two runs agree bit for
-// bit. No FMA contraction: the elementwise results equal the plain
-// version's.
+// [.., C] rows folded into one; the wrapper's plan picks m so that Wf is a
+// multiple of the vector width and fills whole warps).
+//
+// Pass 1: a thread owns kVec CONSECUTIVE columns (16 bytes: 8 bf16 or 4
+// float32) of one chunk of rows and walks its rows in order, two rows in
+// flight: one 16-byte load each of x, y, dy and one 16-byte store each of dx,
+// g per row. Its per-channel constants (sinv, a, mean * sinv) are computed in
+// its registers from scale, mean, var and eps: no PyTorch op prepares them.
+// The ragged last folded row takes a scalar tail. A tensor whose pointers
+// are not 16-byte aligned takes the same kernel at kVec = 1. At the end the
+// block adds, for each channel, its threads' column sums in column order
+// through shared memory and writes ONE partial per channel:
+// partial[2][blocks][C].
+// Pass 2: for 32 channels a block of 32 x 32 threads: each thread adds every
+// 32nd partial in index order, a fixed-shape tree in shared memory adds the
+// 32 results, and one thread per channel writes d_scale, d_bias, d_mean and
+// d_var into out[4][C]. Every sum has one fixed order, so two runs agree bit
+// for bit. No FMA contraction and no fast-math: rsqrtf and the separate
+// roundings give the plain version's float32 values.
 
 #include <cstdint>
+#include <initializer_list>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 
@@ -118,76 +135,196 @@ int launch(const void* x, const void* r, const void* a, const void* b, void* y,
 
 // ---------------------------------------------------------------- backward ---
 
-constexpr int kBwdThreads = 256;  // pass 1: columns per block
-constexpr int kRedLanes = 32;     // pass 2: channels per block ...
-constexpr int kRedRows = 32;      // ... times partial-sum strides
+constexpr int kBwdMaxThreads = 512;  // pass 1: threads per block, at most
+constexpr int kBwdUnroll = 2;        // pass 1: rows in flight per thread
+constexpr int kRedLanes = 32;        // pass 2: channels per block ...
+constexpr int kRedRows = 32;         // ... times strides over the partials
 
-template <typename T, bool kRelu, bool kWantG, typename IndexT>
-__global__ void bn_bwd_kernel(const T* __restrict__ x, const T* __restrict__ y,
-                              const T* __restrict__ dy,
-                              const float* __restrict__ a,
-                              const float* __restrict__ sinv,
-                              const float* __restrict__ msinv,
-                              T* __restrict__ dx, T* __restrict__ g_out,
-                              float* __restrict__ partial, IndexT n, int C,
-                              int Wf, IndexT rows, int rows_per_chunk) {
-  const int j = blockIdx.x * blockDim.x + threadIdx.x;
-  if (j >= Wf) return;
-  const int c = j % C;
-  const float ac = a[c], sc = sinv[c], mc = msinv[c];
-  const IndexT r0 = static_cast<IndexT>(blockIdx.y) * rows_per_chunk;
-  IndexT r1 = r0 + rows_per_chunk;
-  if (r1 > rows) r1 = rows;
-  float s1 = 0.0f, s2 = 0.0f;
-  for (IndexT r = r0; r < r1; ++r) {
-    const IndexT i = r * Wf + j;
-    if (i >= n) break;  // the ragged last folded row
-    float g = load(dy + i);
-    // a product, as bn_pallas.py:97: a NaN in dy stays a NaN under the mask
-    if (kRelu) g = __fmul_rn(g, load(y + i) > 0.0f ? 1.0f : 0.0f);
-    const float xh = __fsub_rn(__fmul_rn(load(x + i), sc), mc);
-    store(dx + i, __fmul_rn(g, ac));
-    if (kWantG) store(g_out + i, g);
-    s1 = __fadd_rn(s1, g);
-    s2 = __fadd_rn(s2, __fmul_rn(g, xh));
-  }
-  const size_t chunks = gridDim.y;
-  partial[static_cast<size_t>(blockIdx.y) * Wf + j] = s1;
-  partial[(chunks + blockIdx.y) * Wf + j] = s2;
+template <typename T, int kVec>
+struct Pack;  // kVec consecutive elements as one access
+template <>
+struct Pack<float, 4> { typedef float4 type; };
+template <>
+struct Pack<__nv_bfloat16, 8> { typedef uint4 type; };
+template <>
+struct Pack<float, 1> { typedef float type; };
+template <>
+struct Pack<__nv_bfloat16, 1> { typedef __nv_bfloat16 type; };
+
+template <typename T, int kVec>
+__device__ __forceinline__ void load_pack(const T* p, float (&v)[kVec]) {
+  const typename Pack<T, kVec>::type raw =
+      *reinterpret_cast<const typename Pack<T, kVec>::type*>(p);
+  const T* e = reinterpret_cast<const T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) v[k] = load(e + k);
 }
 
-// sums[which][c] = sum over (chunk, fold) of partial[which][chunk][fold*C + c]
-__global__ void bn_bwd_reduce_kernel(const float* __restrict__ partial,
-                                     float* __restrict__ sums, int C, int Wf,
-                                     int chunks) {
-  __shared__ float sh[kRedRows][kRedLanes + 1];
-  const int c = blockIdx.x * kRedLanes + threadIdx.x;
-  const float* p = partial + static_cast<size_t>(blockIdx.y) * chunks * Wf;
-  const int m = Wf / C;
-  const int K = chunks * m;
-  float acc = 0.0f;
-  if (c < C) {
-    for (int k = threadIdx.y; k < K; k += kRedRows) {
-      const int chunk = k / m, f = k - chunk * m;
-      acc = __fadd_rn(acc, p[static_cast<size_t>(chunk) * Wf + f * C + c]);
+template <typename T, int kVec>
+__device__ __forceinline__ void store_pack(T* p, const float (&v)[kVec]) {
+  typename Pack<T, kVec>::type raw;
+  T* e = reinterpret_cast<T*>(&raw);
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) store(e + k, v[k]);
+  *reinterpret_cast<typename Pack<T, kVec>::type*>(p) = raw;
+}
+
+// one element: g, dx, the two sums (the order of the plain version)
+template <bool kRelu>
+__device__ __forceinline__ float bwd_element(float xv, float yv, float dyv,
+                                             float ac, float sc, float mc,
+                                             float* dxv, float* s1,
+                                             float* s2) {
+  float g = dyv;
+  // a product, as bn_pallas.py:97: a NaN in dy stays a NaN under the mask
+  if (kRelu) g = __fmul_rn(g, yv > 0.0f ? 1.0f : 0.0f);
+  const float xh = __fsub_rn(__fmul_rn(xv, sc), mc);
+  *dxv = __fmul_rn(g, ac);
+  *s1 = __fadd_rn(*s1, g);
+  *s2 = __fadd_rn(*s2, __fmul_rn(g, xh));
+  return g;
+}
+
+template <typename T, int kVec, bool kRelu, bool kWantG, typename IndexT>
+__global__ void __launch_bounds__(kBwdMaxThreads) bn_bwd_kernel(
+    const T* __restrict__ x, const T* __restrict__ y,
+    const T* __restrict__ dy, const float* __restrict__ scale,
+    const float* __restrict__ mean, const float* __restrict__ var, float eps,
+    T* __restrict__ dx, T* __restrict__ g_out, float* __restrict__ partial,
+    IndexT n, int C, int Wf, IndexT rows, int rows_per_chunk) {
+  extern __shared__ float sh[];  // [2][blockDim.x * kVec] column sums
+  const int width = blockDim.x * kVec;          // columns per block
+  const int j_lo = blockIdx.x * width;          // the block's first column
+  const int j = j_lo + threadIdx.x * kVec;      // the thread's first column
+  float s1[kVec], s2[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) s1[k] = s2[k] = 0.0f;
+  if (j < Wf) {  // Wf % kVec == 0: a thread's columns are all in or all out
+    float ac[kVec], sc[kVec], mc[kVec];
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const int c = (j + k) % C;
+      sc[k] = rsqrtf(__fadd_rn(var[c], eps));
+      ac[k] = __fmul_rn(scale[c], sc[k]);
+      mc[k] = __fmul_rn(mean[c], sc[k]);
+    }
+    const IndexT r0 = static_cast<IndexT>(blockIdx.y) * rows_per_chunk;
+    IndexT r1 = r0 + rows_per_chunk;
+    if (r1 > rows) r1 = rows;
+    // rows of which every column exists (all but a ragged last one)
+    const IndexT full = n / static_cast<IndexT>(Wf);
+    IndexT r1_full = r1 < full ? r1 : full;
+    if (r1_full < r0) r1_full = r0;
+    IndexT r = r0;
+    for (; r + kBwdUnroll <= r1_full; r += kBwdUnroll) {
+      float xv[kBwdUnroll][kVec], yv[kBwdUnroll][kVec], dv[kBwdUnroll][kVec];
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u) {
+        const IndexT i = (r + u) * Wf + j;
+        load_pack<T, kVec>(x + i, xv[u]);
+        load_pack<T, kVec>(dy + i, dv[u]);
+        if (kRelu) load_pack<T, kVec>(y + i, yv[u]);
+      }
+#pragma unroll
+      for (int u = 0; u < kBwdUnroll; ++u) {
+        const IndexT i = (r + u) * Wf + j;
+        float dxv[kVec], gv[kVec];
+#pragma unroll
+        for (int k = 0; k < kVec; ++k)
+          gv[k] = bwd_element<kRelu>(xv[u][k], kRelu ? yv[u][k] : 0.0f,
+                                     dv[u][k], ac[k], sc[k], mc[k], &dxv[k],
+                                     &s1[k], &s2[k]);
+        store_pack<T, kVec>(dx + i, dxv);
+        if (kWantG) store_pack<T, kVec>(g_out + i, gv);
+      }
+    }
+    for (; r < r1; ++r) {  // the rows left over, and the ragged last row
+#pragma unroll
+      for (int k = 0; k < kVec; ++k) {
+        const IndexT i = r * Wf + j + k;
+        if (i >= n) break;
+        float dxv;
+        const float g = bwd_element<kRelu>(
+            load(x + i), kRelu ? load(y + i) : 0.0f, load(dy + i), ac[k],
+            sc[k], mc[k], &dxv, &s1[k], &s2[k]);
+        store(dx + i, dxv);
+        if (kWantG) store(g_out + i, g);
+      }
     }
   }
-  sh[threadIdx.y][threadIdx.x] = acc;
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {
+    sh[threadIdx.x * kVec + k] = s1[k];
+    sh[width + threadIdx.x * kVec + k] = s2[k];
+  }
   __syncthreads();
-  if (threadIdx.y == 0 && c < C) {
-    float t = sh[0][threadIdx.x];
-    for (int q = 1; q < kRedRows; ++q) t = __fadd_rn(t, sh[q][threadIdx.x]);
-    sums[blockIdx.y * C + c] = t;
+  // one partial per channel: the block's columns of that channel, in order
+  const int j_hi = min(j_lo + width, Wf);
+  const size_t blocks = static_cast<size_t>(gridDim.x) * gridDim.y;
+  const size_t block = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
+  for (int c = threadIdx.x; c < C; c += blockDim.x) {
+    float t1 = 0.0f, t2 = 0.0f;
+    for (int q = j_lo + (c - j_lo % C + C) % C; q < j_hi; q += C) {
+      t1 = __fadd_rn(t1, sh[q - j_lo]);
+      t2 = __fadd_rn(t2, sh[width + q - j_lo]);
+    }
+    partial[block * C + c] = t1;
+    partial[(blocks + block) * C + c] = t2;
   }
 }
 
-template <typename T, bool kRelu, bool kWantG>
-void launch_bwd_typed(const void* x, const void* y, const void* dy,
-                      const float* a, const float* sinv, const float* msinv,
-                      void* dx, void* g, float* partial, long long n, int C,
-                      int Wf, int chunks, int rows_per_chunk,
-                      cudaStream_t stream) {
-  const dim3 grid((Wf + kBwdThreads - 1) / kBwdThreads, chunks);
+// S[which][c] = sum over blocks of partial[which][block][c], then the four
+// per-channel gradients into out[4][C]
+__global__ void bn_bwd_reduce_kernel(const float* __restrict__ partial,
+                                     const float* __restrict__ scale,
+                                     const float* __restrict__ var, float eps,
+                                     float* __restrict__ out, int C,
+                                     int blocks) {
+  __shared__ float sh[2][kRedRows][kRedLanes + 1];
+  const int c = blockIdx.x * kRedLanes + threadIdx.x;
+  float acc[2] = {0.0f, 0.0f};
+  if (c < C) {
+#pragma unroll
+    for (int which = 0; which < 2; ++which) {
+      const float* p = partial + static_cast<size_t>(which) * blocks * C + c;
+#pragma unroll 4
+      for (int k = threadIdx.y; k < blocks; k += kRedRows)
+        acc[which] = __fadd_rn(acc[which], p[static_cast<size_t>(k) * C]);
+    }
+  }
+  sh[0][threadIdx.y][threadIdx.x] = acc[0];
+  sh[1][threadIdx.y][threadIdx.x] = acc[1];
+  __syncthreads();
+  for (int half = kRedRows / 2; half > 0; half /= 2) {
+    if (threadIdx.y < half) {
+#pragma unroll
+      for (int which = 0; which < 2; ++which)
+        sh[which][threadIdx.y][threadIdx.x] =
+            __fadd_rn(sh[which][threadIdx.y][threadIdx.x],
+                      sh[which][threadIdx.y + half][threadIdx.x]);
+    }
+    __syncthreads();
+  }
+  if (threadIdx.y == 0 && c < C) {
+    const float s1 = sh[0][0][threadIdx.x], s2 = sh[1][0][threadIdx.x];
+    const float sinv = rsqrtf(__fadd_rn(var[c], eps));
+    const float a = __fmul_rn(scale[c], sinv);
+    out[c] = s2;                                  // d_scale
+    out[C + c] = s1;                              // d_bias
+    out[2 * C + c] = __fmul_rn(-a, s1);           // d_mean
+    out[3 * C + c] = __fmul_rn(                   // d_var, left to right
+        __fmul_rn(__fmul_rn(__fmul_rn(-0.5f, scale[c]), sinv), sinv), s2);
+  }
+}
+
+template <typename T, int kVec, bool kRelu, bool kWantG>
+void launch_bwd_pass1(const void* x, const void* y, const void* dy,
+                      const float* scale, const float* mean, const float* var,
+                      float eps, void* dx, void* g, float* partial,
+                      long long n, int C, int Wf, int threads, int col_tiles,
+                      int chunks, int rows_per_chunk, cudaStream_t stream) {
+  const dim3 grid(col_tiles, chunks);
+  const size_t smem = 2 * sizeof(float) * threads * kVec;
   const long long rows = (n + Wf - 1) / Wf;
   const T* xt = static_cast<const T*>(x);
   const T* yt = static_cast<const T*>(y);
@@ -195,50 +332,75 @@ void launch_bwd_typed(const void* x, const void* y, const void* dy,
   T* dxt = static_cast<T*>(dx);
   T* gt = static_cast<T*>(g);
   if (n < (1LL << 31)) {
-    bn_bwd_kernel<T, kRelu, kWantG, uint32_t>
-        <<<grid, kBwdThreads, 0, stream>>>(
-            xt, yt, dyt, a, sinv, msinv, dxt, gt, partial,
+    bn_bwd_kernel<T, kVec, kRelu, kWantG, uint32_t>
+        <<<grid, threads, smem, stream>>>(
+            xt, yt, dyt, scale, mean, var, eps, dxt, gt, partial,
             static_cast<uint32_t>(n), C, Wf, static_cast<uint32_t>(rows),
             rows_per_chunk);
   } else {
-    bn_bwd_kernel<T, kRelu, kWantG, uint64_t>
-        <<<grid, kBwdThreads, 0, stream>>>(
-            xt, yt, dyt, a, sinv, msinv, dxt, gt, partial,
+    bn_bwd_kernel<T, kVec, kRelu, kWantG, uint64_t>
+        <<<grid, threads, smem, stream>>>(
+            xt, yt, dyt, scale, mean, var, eps, dxt, gt, partial,
             static_cast<uint64_t>(n), C, Wf, static_cast<uint64_t>(rows),
             rows_per_chunk);
   }
 }
 
-template <typename T>
-int launch_bwd(const void* x, const void* y, const void* dy, const void* a,
-               const void* sinv, const void* msinv, void* dx, void* g,
-               void* partial, void* sums, long long n, int C, int Wf,
-               int chunks, int rows_per_chunk, int relu, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  const float* at = static_cast<const float*>(a);
-  const float* st = static_cast<const float*>(sinv);
-  const float* mt = static_cast<const float*>(msinv);
-  float* pt = static_cast<float*>(partial);
+template <typename T, int kVec, typename... Args>
+void launch_bwd_variant(bool relu, bool want_g, Args... args) {
   if (relu) {
-    if (g != nullptr)
-      launch_bwd_typed<T, true, true>(x, y, dy, at, st, mt, dx, g, pt, n, C,
-                                      Wf, chunks, rows_per_chunk, s);
-    else
-      launch_bwd_typed<T, true, false>(x, y, dy, at, st, mt, dx, g, pt, n, C,
-                                       Wf, chunks, rows_per_chunk, s);
+    if (want_g) launch_bwd_pass1<T, kVec, true, true>(args...);
+    else        launch_bwd_pass1<T, kVec, true, false>(args...);
   } else {
-    if (g != nullptr)
-      launch_bwd_typed<T, false, true>(x, y, dy, at, st, mt, dx, g, pt, n, C,
-                                       Wf, chunks, rows_per_chunk, s);
-    else
-      launch_bwd_typed<T, false, false>(x, y, dy, at, st, mt, dx, g, pt, n,
-                                        C, Wf, chunks, rows_per_chunk, s);
+    if (want_g) launch_bwd_pass1<T, kVec, false, true>(args...);
+    else        launch_bwd_pass1<T, kVec, false, false>(args...);
   }
-  int err = static_cast<int>(cudaGetLastError());
-  if (err != 0) return err;
-  const dim3 rgrid((C + kRedLanes - 1) / kRedLanes, 2);
-  bn_bwd_reduce_kernel<<<rgrid, dim3(kRedLanes, kRedRows), 0, s>>>(
-      pt, static_cast<float*>(sums), C, Wf, chunks);
+}
+
+template <typename T>
+int launch_bwd(const void* x, const void* y, const void* dy,
+               const void* scale, const void* mean, const void* var,
+               float eps, void* dx, void* g, void* partial, void* out,
+               long long n, int C, int Wf, int vec, int threads,
+               int col_tiles, int chunks, int rows_per_chunk, int relu,
+               int passes, void* stream) {
+  constexpr int kFull = 16 / static_cast<int>(sizeof(T));
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* mn = static_cast<const float*>(mean);
+  const float* vr = static_cast<const float*>(var);
+  float* pt = static_cast<float*>(partial);
+  // refuse a plan that is not this source's or that the pointers do not fit
+  const long long rows = (n + Wf - 1) / Wf;
+  bool ok = (vec == 1 || vec == kFull) && Wf % C == 0 && Wf % vec == 0 &&
+            threads >= 32 && threads <= kBwdMaxThreads && threads % 32 == 0 &&
+            static_cast<long long>(col_tiles) * threads * vec >= Wf &&
+            static_cast<long long>(col_tiles - 1) * threads * vec < Wf &&
+            chunks >= 1 && chunks <= 65535 &&
+            static_cast<long long>(chunks) * rows_per_chunk >= rows;
+  if (vec != 1) {
+    for (const void* p : {x, dy, static_cast<const void*>(dx),
+                          relu ? y : x, g != nullptr ? g : x})
+      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  }
+  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (passes & 1) {
+    if (vec == 1)
+      launch_bwd_variant<T, 1>(relu != 0, g != nullptr, x, y, dy, sc, mn, vr,
+                               eps, dx, g, pt, n, C, Wf, threads, col_tiles,
+                               chunks, rows_per_chunk, s);
+    else
+      launch_bwd_variant<T, kFull>(relu != 0, g != nullptr, x, y, dy, sc, mn,
+                                   vr, eps, dx, g, pt, n, C, Wf, threads,
+                                   col_tiles, chunks, rows_per_chunk, s);
+    const int err = static_cast<int>(cudaGetLastError());
+    if (err != 0) return err;
+  }
+  if (passes & 2) {
+    bn_bwd_reduce_kernel<<<(C + kRedLanes - 1) / kRedLanes,
+                           dim3(kRedLanes, kRedRows), 0, s>>>(
+        pt, sc, vr, eps, static_cast<float*>(out), C, col_tiles * chunks);
+  }
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -261,30 +423,40 @@ extern "C" int zsvc_bn_apply_relu_bf16(const void* x, const void* r,
   return launch<__nv_bfloat16>(x, r, a, b, y, n, C, relu, stream);
 }
 
-// Backward, both passes on `stream`. `y` is read only when relu != 0; `g`
-// may be NULL (no d_residual wanted). The caller checks that x, y, dy, dx and
-// g are contiguous with C innermost, that a, sinv and msinv are float32 [C],
-// that Wf is a multiple of C, chunks * rows_per_chunk covers
-// ceil(n / Wf) rows with chunks <= 65535, and allocates
-// partial float32 [2][chunks][Wf] and sums float32 [2][C]. Returns
-// cudaGetLastError() of the first launch that failed (0 = both launched).
+// Backward on `stream`: pass 1 (passes & 1) and pass 2 (passes & 2); a call
+// of the op takes both (3), the separate bits exist to time them. `y` is read
+// only when relu != 0; `g` may be NULL (no d_residual wanted). The caller
+// checks that x, y, dy, dx and g are contiguous with C innermost and that
+// scale, mean and var are float32 [C], and allocates partial float32
+// [2][col_tiles * chunks][C] and out float32 [4][C] (d_scale, d_bias,
+// d_mean, d_var). The plan (ops/bn_cuda.bwd_plan) is checked here: Wf a
+// multiple of C and of vec, vec 1 or the 16-byte width (8 bf16, 4 float32;
+// then x, y, dy, dx and g must be 16-byte aligned), col_tiles blocks of
+// `threads` (a multiple of 32, at most 512) threads cover Wf / vec, chunks *
+// rows_per_chunk cover ceil(n / Wf) rows with chunks <= 65535. Returns
+// cudaErrorInvalidValue for a plan that fails, else cudaGetLastError() of
+// the first launch that failed (0 = launched).
 extern "C" int zsvc_bn_bwd_f32(const void* x, const void* y, const void* dy,
-                               const void* a, const void* sinv,
-                               const void* msinv, void* dx, void* g,
-                               void* partial, void* sums, long long n, int C,
-                               int Wf, int chunks, int rows_per_chunk,
-                               int relu, void* stream) {
-  return launch_bwd<float>(x, y, dy, a, sinv, msinv, dx, g, partial, sums, n,
-                           C, Wf, chunks, rows_per_chunk, relu, stream);
+                               const void* scale, const void* mean,
+                               const void* var, float eps, void* dx, void* g,
+                               void* partial, void* out, long long n, int C,
+                               int Wf, int vec, int threads, int col_tiles,
+                               int chunks, int rows_per_chunk, int relu,
+                               int passes, void* stream) {
+  return launch_bwd<float>(x, y, dy, scale, mean, var, eps, dx, g, partial,
+                           out, n, C, Wf, vec, threads, col_tiles, chunks,
+                           rows_per_chunk, relu, passes, stream);
 }
 
 extern "C" int zsvc_bn_bwd_bf16(const void* x, const void* y, const void* dy,
-                                const void* a, const void* sinv,
-                                const void* msinv, void* dx, void* g,
-                                void* partial, void* sums, long long n, int C,
-                                int Wf, int chunks, int rows_per_chunk,
-                                int relu, void* stream) {
-  return launch_bwd<__nv_bfloat16>(x, y, dy, a, sinv, msinv, dx, g, partial,
-                                   sums, n, C, Wf, chunks, rows_per_chunk,
-                                   relu, stream);
+                                const void* scale, const void* mean,
+                                const void* var, float eps, void* dx, void* g,
+                                void* partial, void* out, long long n, int C,
+                                int Wf, int vec, int threads, int col_tiles,
+                                int chunks, int rows_per_chunk, int relu,
+                                int passes, void* stream) {
+  return launch_bwd<__nv_bfloat16>(x, y, dy, scale, mean, var, eps, dx, g,
+                                   partial, out, n, C, Wf, vec, threads,
+                                   col_tiles, chunks, rows_per_chunk, relu,
+                                   passes, stream);
 }

@@ -24,13 +24,25 @@ chain rule runs through the graph autograd builds for the statistics
                          bn_pallas.py:bn_apply_relu_pallas/_fwd); launches
                          counted in `bn_apply_relu_cuda.launches`
   bn_apply_relu_bwd_cuda backward kernels (same source, replace
-                         bn_pallas.py:_bwd): one pass for dx, g and per-chunk
-                         partial sums, one small pass that adds the partials
-                         in a fixed order (no atomics, bit-reproducible);
-                         launches counted in
+                         bn_pallas.py:_bwd). Bound by bytes (x, y, dy read
+                         and dx, g written once) and, at the small shapes,
+                         by the host: so a call is two launches and three
+                         allocations and no other PyTorch op. Pass 1 reads
+                         and writes 16 bytes a thread and row (8 bf16 / 4
+                         float32 consecutive columns of the folded
+                         [rows, m * C] view `bwd_plan` picks), computes
+                         rsqrt(var + eps), a and mean * sinv in registers,
+                         and leaves one partial sum per block and channel;
+                         pass 2 adds the partials in a fixed order (no
+                         atomics, bit-reproducible) and writes d_scale,
+                         d_bias, d_mean, d_var into one [4, C] tensor.
+                         Tensors that are not 16-byte aligned take the same
+                         kernel one element a thread. Launches counted in
                          `bn_apply_relu_bwd_cuda.launches`, and the copies
                          made because dy arrived non-contiguous in
                          `bn_apply_relu_bwd_cuda.dy_copies`
+  bwd_prepare            the same call split into its allocations and its
+                         launch, for timing the launches alone
   bn_apply_relu_plain, bn_apply_relu_bwd_plain
                          the same two functions in plain PyTorch (float32
                          inside), for the CPU and as the kernels' oracle
@@ -46,6 +58,8 @@ layout, e.g. single-threaded).
 
 from __future__ import annotations
 
+import functools
+import math
 import threading
 
 import torch
@@ -137,38 +151,52 @@ bn_apply_relu_cuda.launches = 0
 
 # ---------------------------------------------------------------- backward ---
 
-_BWD_BLOCK = 256        # columns per block of the backward's first pass
-_BWD_MAX_WIDTH = 8192   # largest folded width m * C
-_BWD_MAX_TERMS = 8192   # most partial sums (chunks * m) per channel
-_BWD_BLOCKS = 2112      # blocks aimed at: 16 for each of an H100's 132 SMs
+_BWD_MAX_THREADS = 512   # threads per block of the backward's first pass
+_BWD_MAX_BLOCKS = 264    # most blocks (two for each of an H100's 132 SMs):
+                         # the partials pass 2 adds per channel
+_BWD_MIN_ROWS = 4        # folded rows per chunk, at least (while rows last)
 
 
-def bwd_plan(n: int, c: int):
-    """How the backward kernel cuts a [n / c, c] tensor: (wf, chunks,
-    rows_per_chunk). m consecutive rows fold into one of width wf = m * c,
-    with m chosen so that wf fills whole blocks of 256 threads (the least
-    idle share, then the smallest m); the ceil(n / wf) folded rows split
-    into `chunks` runs of `rows_per_chunk`, enough to fill the card and few
-    enough that the second pass stays short."""
-    m_min = -(-_BWD_BLOCK // c)
+@functools.lru_cache(maxsize=None)
+def bwd_plan(n: int, c: int, itemsize: int = 2, aligned: bool = True):
+    """How the backward cuts a [n / c, c] tensor of `itemsize`-byte elements.
+
+    m consecutive rows fold into one of width wf = m * c; a thread of pass 1
+    owns `vec` consecutive columns (16 bytes: 8 bf16 or 4 float32; 1 when the
+    tensors are not 16-byte `aligned`), so m makes wf a multiple of vec, and
+    among those the plan takes the m and the block size (`threads`, a
+    multiple of 32 up to 512; `col_tiles` blocks across the width) with the
+    fewest idle threads, then the widest row. The ceil(n / wf) folded rows
+    split into `chunks` runs of `rows_per_chunk`: enough blocks to fill the
+    card, at most 264 in all (pass 2 adds one partial per block and
+    channel, and a block of several hundred threads with two rows each in
+    flight keeps the memory system as busy as more blocks would), at most
+    65535 chunks. -> dict with those keys and `path` ("vector16" or
+    "scalar"); cached, so treat it as read-only."""
+    vec = 16 // itemsize if aligned else 1
+    step = vec // math.gcd(c, vec)        # m must be a multiple of this
     best = None
-    for m in range(m_min, m_min + 32):
-        wf = m * c
-        if wf > _BWD_MAX_WIDTH and m > m_min:
+    for m in range(step, max(step, _BWD_MAX_THREADS * vec // c) + 1, step):
+        cols = m * c // vec               # threads that have columns
+        tiles = -(-cols // _BWD_MAX_THREADS)
+        threads = -(-(-(-cols // tiles)) // 32) * 32
+        idle = 1.0 - cols / (tiles * threads)
+        key = (round(idle, 3), -m)
+        if best is None or key < best[0]:
+            best = (key, m, threads, tiles)
+        if m * c >= n:                    # one folded row holds it all
             break
-        tiles = -(-wf // _BWD_BLOCK)
-        idle = (tiles * _BWD_BLOCK - wf) / (tiles * _BWD_BLOCK)
-        if best is None or idle < best[0] - 1e-9:
-            best = (idle, m)
-    m = best[1]
+    _, m, threads, tiles = best
     wf = m * c
     rows = -(-n // wf)
-    tiles = -(-wf // _BWD_BLOCK)
-    chunks = max(1, min(rows, -(-_BWD_BLOCKS // tiles),
-                        _BWD_MAX_TERMS // m, 65535))
+    chunks = max(1, min(-(-rows // _BWD_MIN_ROWS), _BWD_MAX_BLOCKS // tiles,
+                        65535))
     rows_per_chunk = -(-rows // chunks)
     chunks = -(-rows // rows_per_chunk)
-    return wf, chunks, rows_per_chunk
+    return {"wf": wf, "m": m, "vec": vec, "threads": threads,
+            "col_tiles": tiles, "chunks": chunks,
+            "rows_per_chunk": rows_per_chunk,
+            "path": "vector16" if vec > 1 else "scalar"}
 
 
 def _finish_bwd(s1, s2, scale, sinv, a):
@@ -196,10 +224,13 @@ def bn_apply_relu_bwd_plain(x, y, dy, scale, mean, var, relu=True,
     return (dx, *_finish_bwd(s1, s2, scale, sinv, a), d_res)
 
 
-def bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu=True,
-                           want_g=False, eps=1e-5):
-    """The backward as one launch of the two CUDA kernels; same contract as
-    bn_apply_relu_bwd_plain, on CUDA tensors with x and y contiguous."""
+def bwd_prepare(x, y, dy, scale, mean, var, relu=True, want_g=False,
+                eps=1e-5):
+    """Check the operands, allocate the results and plan the cut ->
+    (launch, results): `launch(passes=3)` enqueues pass 1 (bit 1) and pass 2
+    (bit 2) on the current stream and counts one launch of the op;
+    `results` is what bn_apply_relu_bwd_cuda returns once it has run. x and
+    y must be contiguous; n > 0."""
     c = check_bn_args(x, scale, scale, mean, var, None)  # no bias here
     if x.device.type != "cuda":
         raise ValueError(f"bn_apply_relu_bwd_cuda needs CUDA tensors, got "
@@ -216,33 +247,56 @@ def bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu=True,
         dy = dy.contiguous()
         with _count_lock:
             bn_apply_relu_bwd_cuda.dy_copies += 1
-    sinv = torch.rsqrt(var + eps)
-    a = scale * sinv
+    n = x.numel()
     dx = torch.empty_like(x)
     g = torch.empty_like(x) if want_g else None
-    n = x.numel()
-    if n == 0:
-        z = torch.zeros_like(scale)
-        return dx, z, z.clone(), z.clone(), z.clone(), g
-    wf, chunks, rows_per_chunk = bwd_plan(n, c)
-    partial = torch.empty((2, chunks, wf), dtype=torch.float32,
+    aligned = all(v.data_ptr() % 16 == 0
+                  for v in (x, dy, y if relu else None) if v is not None)
+    plan = bwd_plan(n, c, x.element_size(), aligned)
+    blocks = plan["col_tiles"] * plan["chunks"]
+    # the partial sums [2][blocks][C] and the results [4][C], one allocation
+    scratch = torch.empty((2 * blocks + 4) * c, dtype=torch.float32,
                           device=x.device)
-    sums = torch.empty((2, c), dtype=torch.float32, device=x.device)
-    msinv = mean * sinv
+    out = scratch[2 * blocks * c:].view(4, c)
     lib = _build.library()
     fn = (lib.zsvc_bn_bwd_f32 if x.dtype == torch.float32
           else lib.zsvc_bn_bwd_bf16)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
-                 a.data_ptr(), sinv.data_ptr(), msinv.data_ptr(),
-                 dx.data_ptr(), None if g is None else g.data_ptr(),
-                 partial.data_ptr(), sums.data_ptr(), n, c, wf, chunks,
-                 rows_per_chunk, int(bool(relu)), stream)
-    _build.check(err, "bn_apply_relu backward")
-    with _count_lock:
-        bn_apply_relu_bwd_cuda.launches += 1
-    return (dx, *_finish_bwd(sums[0], sums[1], scale, sinv, a), g)
+    args = (x.data_ptr(), y.data_ptr() if relu else None, dy.data_ptr(),
+            scale.data_ptr(), mean.data_ptr(), var.data_ptr(), float(eps),
+            dx.data_ptr(), None if g is None else g.data_ptr(),
+            scratch.data_ptr(), out.data_ptr(), n, c, plan["wf"],
+            plan["vec"], plan["threads"], plan["col_tiles"], plan["chunks"],
+            plan["rows_per_chunk"], int(bool(relu)))
+    keep = (x, y, dy, scale, mean, var)  # alive until the launch is queued
+
+    def launch(passes=3):
+        if x.device.index == torch.cuda.current_device():
+            err = fn(*args, passes, torch.cuda.current_stream().cuda_stream)
+        else:
+            with torch.cuda.device(x.device):
+                err = fn(*args, passes,
+                         torch.cuda.current_stream().cuda_stream)
+        _build.check(err, f"bn_apply_relu backward ({plan})")
+        with _count_lock:
+            bn_apply_relu_bwd_cuda.launches += 1
+        return keep
+
+    return launch, (dx, *out.unbind(0), g)
+
+
+def bn_apply_relu_bwd_cuda(x, y, dy, scale, mean, var, relu=True,
+                           want_g=False, eps=1e-5):
+    """The backward as one launch of the two CUDA kernels; same contract as
+    bn_apply_relu_bwd_plain, on CUDA tensors with x and y contiguous."""
+    if x.numel() == 0:
+        check_bn_args(x, scale, scale, mean, var, None)
+        z = torch.zeros_like(scale)
+        return (torch.empty_like(x), z, z.clone(), z.clone(), z.clone(),
+                torch.empty_like(x) if want_g else None)
+    launch, results = bwd_prepare(x, y, dy, scale, mean, var, relu, want_g,
+                                  eps)
+    launch()
+    return results
 
 
 bn_apply_relu_bwd_cuda.launches = 0
