@@ -16,8 +16,12 @@ result line) if it fails:
      K1 (video transform) at the serving shape, buckets 8 and 32, in f32
      (atol 2e-6) and bf16 (1 ulp); K2 (BN epilogue) at every epilogue shape
      r2plus1d_18 produces at bucket 8 x 4 clips, f32 and bf16, with and
-     without residual and ReLU. Kernel time beside the plain time (CUDA
-     events, median);
+     without residual and ReLU. The wrapper's time (one call between two
+     CUDA events, median) beside its launch alone (ops' *_prepare: the
+     output allocated once, a run of LAUNCH_RUN launches between two
+     events, per launch) and the plain time; for K2 also F.batch_norm
+     (eval mode, channels-last, same dtype; the port never calls it) at the
+     epilogues with neither residual nor ReLU, beside the kernel there;
   4. whole model: full-width r2plus1d_18 + mlp head, seeded weights with
      per-channel BN statistics (seeded scale and bias, running mean and
      variance measured on the clips), on the card in bf16 (the kernels'
@@ -39,8 +43,9 @@ result line) if it fails:
      pass alone, and the plain time, summed over one backward pass. The
      forward output that feeds each
      backward is K2 forward at the training path's shapes: it is held
-     against its plain version and timed there too (f32 within 2e-6, bf16
-     within 1 ulp; summed over one 16-clip forward);
+     against its plain version and timed there too, wrapper and launch
+     alone, with F.batch_norm as in phase 3 (f32 within 2e-6, bf16 within 1
+     ulp; summed over one 16-clip forward);
   7. train: the training CLI (cli/main.py) on the synthetic dataset, full
      width r2plus1d_18 + mlp, bf16 compute with float32 masters, batch 16:
      8 steps through the entry point with the kernels' launch counts read
@@ -49,7 +54,8 @@ result line) if it fails:
      the zero-shot evaluation that ends the epoch, whose forward is timed in
      clips/s at its own batch and at the default 128 clips per dispatch); K1
      on a training batch (16 synthetic-dataset canvases, 1 clip
-     each) against its plain version, f32 and bf16, and the batch that
+     each) against its plain version, f32 and bf16, wrapper and launch
+     alone timed as in phase 3, and the batch that
      device_batch hands the step against the same; then 8 steps on one
      repeated batch (finite losses, the last below the first, BN running
      statistics moved; step time by CUDA events and by the host's clock,
@@ -89,8 +95,12 @@ in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
 operations at the published peak for their type; the measured copy
-bandwidth is printed beside it), and the time of the one PyTorch call that
-computes the same function where there is one (library_ms). The last is
+bandwidth is printed beside it), the launch alone (launch_ms: K1, K2
+forward and backward; null where not split), and the time of the one
+PyTorch call that computes the same function where there is one
+(library_ms; for K2 forward F.batch_norm at the epilogues without residual
+and ReLU, with the kernel's launch alone there in library_shapes_ms). The
+last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. --json PATH also writes every measurement to PATH. It imports
 the port and the helpers in tests/torch_helpers.py (numpy and torch only).
@@ -120,6 +130,7 @@ HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
 F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 BN_SEED = 1  # BN scale and bias of every model built here
+LAUNCH_RUN = 20  # launches between two events when a launch is timed alone
 # bf16 against the CPU f32 forward, per video: the two runs round at
 # different places (bf16 conv inputs, outputs and epilogues on one side,
 # none on the other, layers.py:71-74 in the JAX package), ~2^-9 relative per
@@ -156,6 +167,28 @@ def time_ms(fn, reps=10):
         b.record()
         b.synchronize()
         times.append(a.elapsed_time(b))
+    return statistics.median(times)
+
+
+def run_ms(fn, runs=LAUNCH_RUN, reps=5):
+    """Median device time of one fn() in ms, from `runs` calls queued
+    between two CUDA events (after one warm-up run): the queue hides the
+    host's time of a call while it is shorter than the device's."""
+    import torch
+
+    for _ in range(runs):
+        fn()
+    torch.cuda.synchronize()
+    times = []
+    for _ in range(reps):
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        a.record()
+        for _ in range(runs):
+            fn()
+        b.record()
+        b.synchronize()
+        times.append(a.elapsed_time(b) / runs)
     return statistics.median(times)
 
 
@@ -279,6 +312,8 @@ def k1_compare(args, dt, what):
     )
     from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
         fused_video_transform_cuda,
+        transform_plan,
+        transform_prepare,
     )
 
     got = fused_video_transform_cuda(*args, out_dtype=dt)
@@ -292,19 +327,28 @@ def k1_compare(args, dt, what):
     else:
         check(ulps <= 1.0, f"K1 bf16 {what}: {ulps} ulp")
     ms = time_ms(lambda: fused_video_transform_cuda(*args, out_dtype=dt))
+    launch, _ = transform_prepare(*args, out_dtype=dt)
+    launch_ms = run_ms(launch)
     plain = time_ms(lambda: fused_video_transform(*args, out_dtype=dt),
                     reps=5)
     # canvas and taps read once, the output written once; ~12 float32
     # operations per output value (two lerps and the normalisation)
     nbytes = (sum(a.numel() * a.element_size() for a in args)
               + got.numel() * got.element_size())
+    b, t, hc, wc, _ = args[0].shape
+    plan = transform_plan(b, t, hc, wc, got.shape[2], got.element_size())
     row = {"shape": list(args[0].shape), "dtype": str(dt).split(".")[-1],
            "max_abs_err": err, "bf16_ulps": ulps, "ms": ms,
-           "plain_ms": plain, "bytes": nbytes, "flops": 12 * got.numel(),
-           "GB_per_s": nbytes / 1e9 / (ms / 1e3)}
+           "launch_ms": launch_ms, "plain_ms": plain, "bytes": nbytes,
+           "flops": 12 * got.numel(), "plan": plan,
+           "GB_per_s": nbytes / 1e9 / (launch_ms / 1e3)}
     say(f"[K1] {what} canvas {'x'.join(map(str, row['shape']))} -> "
-        f"{row['dtype']}: err {err:.3g} ({ulps:.2f} bf16 ulp)  kernel "
-        f"{ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  plain {plain:.3f} ms")
+        f"{row['dtype']}: err {err:.3g} ({ulps:.2f} bf16 ulp)  wrapper "
+        f"{ms:.4f} ms, launch alone {launch_ms:.4f} ms "
+        f"({row['GB_per_s']:.0f} GB/s; {plan['blocks']} blocks of "
+        f"{plan['threads']} threads, a band of {plan['band_rows']} rows "
+        f"each, {plan['stage_rows']} rows staged, {plan['smem_bytes']} B "
+        f"shared)  plain {plain:.3f} ms")
     return row, want
 
 
@@ -325,7 +369,8 @@ def phase_k1(paths, dev, copy_gbs):
             out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
     serving = next(r for r in out["shapes"]
                    if r["bucket"] == 8 and r["dtype"] == "bfloat16")
-    out["ms"], out["plain_ms"] = serving["ms"], serving["plain_ms"]
+    for k in ("ms", "launch_ms", "plain_ms"):
+        out[k] = serving[k]
     say("[K1] serve bucket 8 -> bfloat16: " + bound(
         out, serving["bytes"], serving["flops"], copy_gbs))
     RECORD["k1"] = out
@@ -361,6 +406,73 @@ def epilogue_calls(model, x):
     return calls
 
 
+def k2_fwd_times(x, stats, res, relu):
+    """K2 forward's wrapper time, its launch alone and the plain version's
+    time on these operands, and, without residual and ReLU, F.batch_norm's
+    (eval mode, x's channels-last-3d view, the same dtype; a yardstick the
+    port never calls) with its distance from the kernel's output. -> dict."""
+    import torch
+    import torch.nn.functional as F
+
+    from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
+        bn_apply_relu_cuda,
+        bn_apply_relu_plain,
+        fwd_plan,
+        fwd_prepare,
+    )
+
+    out = {"ms": time_ms(lambda: bn_apply_relu_cuda(x, *stats, res, relu)),
+           "plain_ms": time_ms(lambda: bn_apply_relu_plain(
+               x, *stats, res, relu), reps=5)}
+    launch, _ = fwd_prepare(x, *stats, res, relu)
+    out["launch_ms"] = run_ms(launch)
+    out["plan"] = fwd_plan(x.numel(), x.shape[-1], x.element_size(), True)
+    if res is None and not relu:
+        scale, bias, mean, var = stats
+        xv = x.permute(0, 4, 1, 2, 3)  # NCDHW, channels-last-3d strides
+
+        def lib():
+            return F.batch_norm(xv, mean, var, scale, bias, training=False,
+                                eps=1e-5)
+
+        try:
+            got = lib().permute(0, 2, 3, 4, 1)
+            out["library_err"] = float(
+                (got.float() - bn_apply_relu_cuda(x, *stats, None, False)
+                 .float()).abs().max())
+            out["library_ms"] = time_ms(lib)
+        except RuntimeError as e:  # a yardstick only: record, go on
+            out["library_error"] = str(e).splitlines()[0]
+    return out
+
+
+def add_k2_fwd(out, n, times, shape, esize, res, relu):
+    """Add one epilogue's times, `n` calls a forward, to the forward's
+    sums in `out` (the library's only where it was timed)."""
+    for k in ("ms", "launch_ms", "plain_ms"):
+        out[k] += n * times[k]
+    by, fl = epilogue_bytes_flops(shape, esize, res, relu, False)
+    out["bytes"] += n * by
+    out["flops"] += n * fl
+    if "library_ms" in times:
+        out["library_ms"] = (out.get("library_ms") or 0.0) + n * times[
+            "library_ms"]
+        out["library_shapes_ms"] += n * times["launch_ms"]
+        out["library_max_abs_err"] = max(out["library_max_abs_err"],
+                                         times["library_err"])
+
+
+def k2_fwd_text(out, what):
+    lib = ("F.batch_norm not timed" if out.get("library_ms") is None else
+           f"F.batch_norm {out['library_ms']:.3f} ms at the epilogues "
+           f"without residual and ReLU, where the kernel's launches take "
+           f"{out['library_shapes_ms']:.3f} ms (outputs within "
+           f"{out['library_max_abs_err']:.3g})")
+    return (f"per bf16 forward {what}: wrapper {out['ms']:.3f} ms, launches "
+            f"alone {out['launch_ms']:.3f} ms, plain {out['plain_ms']:.3f} "
+            f"ms; {lib}")
+
+
 def phase_k2(calls, dev, copy_gbs):
     import torch
 
@@ -372,7 +484,8 @@ def phase_k2(calls, dev, copy_gbs):
 
     g = torch.Generator(device=dev).manual_seed(0)
     out = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0,
-           "bytes": 0, "flops": 0}
+           "launch_ms": 0.0, "library_ms": None, "library_shapes_ms": 0.0,
+           "library_max_abs_err": 0.0, "bytes": 0, "flops": 0}
     shapes = sorted({k[0] for k in calls}, key=lambda s: -math.prod(s))
     for shape in shapes:
         c = shape[-1]
@@ -403,31 +516,29 @@ def phase_k2(calls, dev, copy_gbs):
                     n = calls.get((shape, res, relu), 0)
                     if not n:
                         continue
-                    ms = time_ms(lambda: bn_apply_relu_cuda(
-                        x, *stats, rr, relu))
-                    plain = time_ms(lambda: bn_apply_relu_plain(
-                        x, *stats, rr, relu), reps=5)
+                    t = k2_fwd_times(x, stats, rr, relu)
                     gb = x.numel() * x.element_size() * (3 if res else 2) / 1e9
                     row = {"shape": list(shape), "dtype": str(dt)[6:],
                            "residual": res, "relu": relu, "calls": n,
-                           "max_abs_err": err, "bf16_ulps": ulps, "ms": ms,
-                           "plain_ms": plain, "GB_per_s": gb / (ms / 1e3)}
+                           "max_abs_err": err, "bf16_ulps": ulps, **t,
+                           "GB_per_s": gb / (t["launch_ms"] / 1e3)}
                     out["shapes"].append(row)
                     if dt == torch.bfloat16:
-                        out["ms"] += n * ms
-                        out["plain_ms"] += n * plain
-                        by, fl = epilogue_bytes_flops(shape, 2, res, relu,
-                                                      False)
-                        out["bytes"] += n * by
-                        out["flops"] += n * fl
+                        add_k2_fwd(out, n, t, shape, 2, res, relu)
+                    lib = ("" if "library_ms" not in t else
+                           f"  F.batch_norm {t['library_ms']:.4f} ms")
                     say(f"[K2] {'x'.join(map(str, shape))} {row['dtype']} "
                         f"res={int(res)} relu={int(relu)} x{n}: err "
-                        f"{err:.3g} ({ulps:.2f} ulp)  kernel {ms:.3f} ms "
-                        f"({row['GB_per_s']:.0f} GB/s)  plain {plain:.3f} ms")
+                        f"{err:.3g} ({ulps:.2f} ulp)  wrapper {t['ms']:.4f} "
+                        f"ms, launch alone {t['launch_ms']:.4f} ms "
+                        f"({row['GB_per_s']:.0f} GB/s; {t['plan']['path']}, "
+                        f"{t['plan']['col_tiles'] * t['plan']['chunks']} "
+                        f"blocks of {t['plan']['threads']})  plain "
+                        f"{t['plain_ms']:.3f} ms" + lib)
         del x32, r32, x, r
-    say(f"[K2] all {len(shapes)} shapes x 8 variants agree; per bf16 forward "
-        f"at bucket 8: kernel {out['ms']:.3f} ms, plain {out['plain_ms']:.3f} "
-        f"ms over {sum(calls.values())} epilogues; "
+    say(f"[K2] all {len(shapes)} shapes x 8 variants agree; "
+        + k2_fwd_text(out, f"at bucket 8 over {sum(calls.values())} "
+                           f"epilogues") + "; "
         + bound(out, out["bytes"], out["flops"], copy_gbs))
     RECORD["k2"] = out
     return out
@@ -454,7 +565,8 @@ def phase_k2_bwd(calls, dev, copy_gbs):
            "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
            "launches_ms": 0.0, "pass2_ms": 0.0}
     fwd = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0,
-           "bytes": 0, "flops": 0}
+           "launch_ms": 0.0, "library_ms": None, "library_shapes_ms": 0.0,
+           "library_max_abs_err": 0.0, "bytes": 0, "flops": 0}
     shapes = sorted({k[0] for k in calls}, key=lambda s: -math.prod(s))
     for shape in shapes:
         c = shape[-1]
@@ -531,17 +643,15 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                     n = calls.get((shape, res, relu), 0)
                     if not n:
                         continue
-                    f_ms = time_ms(lambda: bn_apply_relu_cuda(*f_args))
-                    f_plain = time_ms(lambda: bn_apply_relu_plain(*f_args),
-                                      reps=5)
-                    f_by, f_fl = epilogue_bytes_flops(
+                    ft = k2_fwd_times(x, [scale, bias, mean, var],
+                                      r if res else None, relu)
+                    f_by, _ = epilogue_bytes_flops(
                         shape, x.element_size(), res, relu, False)
                     fwd["shapes"].append({
                         "shape": list(shape), "dtype": str(dt)[6:],
                         "residual": res, "relu": relu, "calls": n,
-                        "max_abs_err": f_err, "bf16_ulps": f_ulps,
-                        "ms": f_ms, "plain_ms": f_plain,
-                        "GB_per_s": f_by / 1e9 / (f_ms / 1e3)})
+                        "max_abs_err": f_err, "bf16_ulps": f_ulps, **ft,
+                        "GB_per_s": f_by / 1e9 / (ft["launch_ms"] / 1e3)})
                     ms = time_ms(lambda: bn_apply_relu_bwd_cuda(*args))
                     plain = time_ms(lambda: bn_apply_relu_bwd_plain(*args),
                                     reps=3)
@@ -570,14 +680,16 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                         out["pass2_ms"] += n * p2_ms
                         out["bytes"] += n * by
                         out["flops"] += n * fl
-                        fwd["ms"] += n * f_ms
-                        fwd["plain_ms"] += n * f_plain
-                        fwd["bytes"] += n * f_by
-                        fwd["flops"] += n * f_fl
+                        add_k2_fwd(fwd, n, ft, shape, x.element_size(), res,
+                                   relu)
                     say(f"[K2 fwd, train] {'x'.join(map(str, shape))} "
                         f"{str(dt)[6:]} res={int(res)} relu={int(relu)} "
-                        f"x{n}: err {f_err:.3g} ({f_ulps:.2f} ulp)  kernel "
-                        f"{f_ms:.3f} ms  plain {f_plain:.3f} ms")
+                        f"x{n}: err {f_err:.3g} ({f_ulps:.2f} ulp)  wrapper "
+                        f"{ft['ms']:.4f} ms, launch alone "
+                        f"{ft['launch_ms']:.4f} ms  plain "
+                        f"{ft['plain_ms']:.3f} ms"
+                        + ("" if "library_ms" not in ft else
+                           f"  F.batch_norm {ft['library_ms']:.4f} ms"))
                     say(f"[K2 bwd] {'x'.join(map(str, shape))} "
                         f"{row['dtype']} res={int(res)} relu={int(relu)} "
                         f"x{n}: dx err {err:.3g}, sums rel {rel:.2g}  wrapper "
@@ -594,9 +706,9 @@ def phase_k2_bwd(calls, dev, copy_gbs):
         f"ms of which pass 2 {out['pass2_ms']:.3f} ms, plain "
         f"{out['plain_ms']:.3f} ms over {sum(calls.values())} epilogues; "
         + bound(out, out["bytes"], out["flops"], copy_gbs))
-    say(f"[K2 fwd, train] the same shapes and variants agree; per bf16 "
-        f"forward at {TRAIN_BS} clips: kernel {fwd['ms']:.3f} ms, plain "
-        f"{fwd['plain_ms']:.3f} ms over {sum(calls.values())} epilogues; "
+    say(f"[K2 fwd, train] the same shapes and variants agree; "
+        + k2_fwd_text(fwd, f"at {TRAIN_BS} clips over "
+                           f"{sum(calls.values())} epilogues") + "; "
         + bound(fwd, fwd["bytes"], fwd["flops"], copy_gbs))
     RECORD["k2_bwd"], RECORD["k2_fwd_train"] = out, fwd
     return out, fwd
@@ -822,7 +934,8 @@ def phase_train(tmp, dev, smi, copy_gbs):
     check(ulps <= 1.0, f"device_batch's bf16 clips are {ulps} ulp from the "
                        f"plain transform of the same host batch")
     k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["shapes"])
-    k1["ms"], k1["plain_ms"] = row["ms"], row["plain_ms"]
+    for k in ("ms", "launch_ms", "plain_ms"):
+        k1[k] = row[k]
     say(f"[K1] train batch of {TRAIN_BS} -> bfloat16 (device_batch's output "
         f"within {ulps:.2f} ulp of the plain transform): "
         + bound(k1, row["bytes"], row["flops"], copy_gbs))
@@ -1569,10 +1682,13 @@ def main(argv=None):
                 "source": src + source, "replaces": ops + replaces,
                 "launches": launches[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
+                "launch_ms": rec.get("launch_ms", rec.get("launches_ms")),
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "copy_bound_ms": rec["copy_bound_ms"],
-                "library_ms": rec.get("library_ms")}
+                "library_ms": rec.get("library_ms"),
+                **({"library_shapes_ms": rec["library_shapes_ms"]}
+                   if "library_shapes_ms" in rec else {})}
 
     k1_at, k2_at = "resample_pallas.py:74", "bn_pallas.py:131"
     kernels = {"kernels": [

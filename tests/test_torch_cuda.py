@@ -16,6 +16,7 @@ import torch
 from zeroshotvideoclassification_tpu_torch.data.transform_params import (
     make_transform_params,
     resample_indices,
+    resized_dims,
 )
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     bn_apply_relu,
@@ -24,6 +25,8 @@ from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     bn_apply_relu_cuda,
     bn_apply_relu_plain,
     bwd_plan,
+    fold_affine,
+    fwd_plan,
 )
 from zeroshotvideoclassification_tpu_torch.data.stillimages import (
     CH_OFFSET,
@@ -39,6 +42,7 @@ from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
     fused_image_motion_transform_cuda,
     fused_video_transform_cuda,
     image_motion_transform,
+    transform_plan,
     video_transform,
 )
 from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
@@ -105,6 +109,99 @@ def test_k1_odd_canvas_and_refusals(cuda):
     with pytest.raises(ValueError, match="y1"):
         fused_video_transform_cuda(args[0], args[1], args[2].cpu(),
                                    *args[3:])
+
+
+def _assert_k1(args, out_dtype=torch.float32):
+    got = fused_video_transform_cuda(*args, out_dtype=out_dtype)
+    torch.cuda.synchronize()
+    want = fused_video_transform(*args, out_dtype=out_dtype)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+    return got
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k1_bands_at_the_canvas_edge(cuda, out_dtype):
+    """Crops at the bottom-right corner and at the top-left (first and last
+    bands touch the canvas's first and last rows; the clamped second tap
+    repeats the last row), flipped and not."""
+    rng = np.random.default_rng(4)
+    b, hc, wc = 4, 150, 190
+    canvas = rng.integers(0, 256, (b, 3, hc, wc, 3), dtype=np.uint8)
+    p = make_transform_params(np.array([[hc, wc]] * b), 112, False, rng)
+    hr, wr, _ = resized_dims(hc, wc, 128)
+    p.crop_ij[:] = [[hr - 112, wr - 112], [0, 0], [hr - 112, 0], [0, 0]]
+    p.flip[:] = [False, True, True, False]
+    idx = resample_indices(p, 112)
+    assert int(idx.y1.max()) == hc - 1 and int(idx.y0.min()) == 0
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (canvas, *idx.astuple())]
+    _assert_k1(args, out_dtype)
+
+
+@pytest.mark.parametrize("hc", [131, 400])
+def test_k1_non_monotone_taps_in_pieces(cuda, hc):
+    """Row taps in random order, second taps anywhere in the canvas: bands
+    whose span exceeds the staging area are done in pieces, and output rows
+    whose two taps lie far apart stage just those two rows."""
+    args = _transform_args(cuda, b=3, t=2, hc=hc, wc=173, seed=5)
+    g = torch.Generator(device=cuda).manual_seed(5)
+    perm = torch.randperm(112, device=cuda, generator=g)
+    for j in (1, 2, 3):
+        args[j] = args[j][:, perm].contiguous()
+    args[2] = torch.randint(0, hc, args[2].shape, device=cuda,
+                            generator=g, dtype=torch.int32)
+    assert transform_plan(3, 2, hc, 173, 112, 4)["stage_rows"] < hc
+    for dt in (torch.float32, torch.bfloat16):
+        _assert_k1(args, dt)
+
+
+def test_k1_canvas_off_the_16_byte_grid(cuda):
+    """A canvas that is a contiguous view a few bytes into its buffer: the
+    staging copies take their cut pieces at other places, the result does
+    not change by a bit."""
+    args = _transform_args(cuda, b=2, t=3, hc=131, wc=173, seed=6)
+    want = fused_video_transform_cuda(*args)
+    for off in (1, 5, 13):
+        buf = torch.empty(args[0].numel() + 16, dtype=torch.uint8,
+                          device=cuda)
+        view = buf[off:off + args[0].numel()].view(args[0].shape)
+        view.copy_(args[0])
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        assert torch.equal(_assert_k1([view, *args[1:]]), want)
+
+
+@pytest.mark.parametrize("hc,wc", [(40, 16000), (2000, 8000)])
+def test_k1_on_canvases_too_wide_for_a_tall_band(cuda, hc, wc):
+    """Canvases 16000 and 8000 pixels wide: the plan shrinks the band to
+    what fits 227 KB of shared memory (2 rows a band), or, where a band's
+    span cannot fit (2000 rows tall), keeps 16 rows and stages each band in
+    pieces of 8 canvas rows."""
+    args = _transform_args(cuda, b=2, t=2, hc=hc, wc=wc, seed=9)
+    plan = transform_plan(2, 2, hc, wc, 112, 4)
+    assert (plan["whole_span"], plan["band_rows"]) == (
+        (True, 2) if hc == 40 else (False, 16))
+    for dt in (torch.float32, torch.bfloat16):
+        _assert_k1(args, dt)
+
+
+def test_k1_at_the_grid_limit(cuda):
+    """B * T = 65535 frames (grid.y's limit) of a small canvas; one more
+    raises."""
+    rng = np.random.default_rng(8)
+    b, t, hc, wc, s = 5, 13107, 9, 11, 4
+    canvas = rng.integers(0, 256, (b, t, hc, wc, 3), dtype=np.uint8)
+    p = make_transform_params(np.array([[hc, wc]] * b), s, False, rng)
+    args = [torch.from_numpy(np.ascontiguousarray(a)).to(cuda)
+            for a in (canvas, *resample_indices(p, s).astuple())]
+    assert b * t == 65535
+    for dt in (torch.float32, torch.bfloat16):
+        _assert_k1(args, dt)
+    big = torch.zeros((5, 13108, hc, wc, 3), dtype=torch.uint8, device=cuda)
+    with pytest.raises(ValueError, match="65535"):
+        fused_video_transform_cuda(big, *args[1:])
 
 
 def _motion_args(dev, b=3, t=5, hw=(180, 221), canvas=(200, 230), seed=0,
@@ -344,6 +441,105 @@ def test_k2_refusals(cuda):
         bn_apply_relu_cuda(x, *stats, r.float())
     with pytest.raises(ValueError, match="scale"):
         bn_apply_relu_cuda(x, stats[0].cpu(), *stats[1:])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("which", ["x", "residual"])
+def test_k2_forward_takes_a_misaligned_view(cuda, dtype, which):
+    """x or the residual as a contiguous view one element into a buffer
+    (not 16-byte aligned): the plan's one-element path, the aligned call's
+    result bit for bit."""
+    shape = (4, 3, 9, 11, 230)
+    x, stats, r = _bn_operands(cuda, shape, dtype, True)
+    want = bn_apply_relu_cuda(x, *stats, r, True)
+    ops = {"x": x, "residual": r}
+    buf = torch.empty(x.numel() + 8, dtype=dtype, device=cuda)
+    view = buf[1:1 + x.numel()].view(shape)
+    view.copy_(ops[which])
+    assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+    ops[which] = view
+    assert fwd_plan(x.numel(), 230, x.element_size(), False)["path"] == (
+        "scalar")
+    got = bn_apply_relu_cuda(ops["x"], *stats, ops["residual"], True)
+    torch.cuda.synchronize()
+    assert torch.equal(got, want)
+    assert torch.equal(got, bn_apply_relu_plain(x, *stats, r, True))
+
+
+@pytest.mark.parametrize("seed", range(12))
+def test_k2_forward_at_random_shapes(cuda, seed):
+    """(rows, C) drawn from a seed, down to one row and one channel, where
+    the folded view is wider than the tensor and its last row ragged: every
+    variant against the plain version (float32 bit for bit: the same
+    operations in the same order)."""
+    rng = np.random.default_rng(300 + seed)
+    c = int(rng.choice([1, 2, 3, 8, 45, 64, 100, 230, 513, 921, 1200]))
+    rows = int(rng.choice([1, 2, 7, 63, 500, 4097, 40001]))
+    dtype = (torch.float32, torch.bfloat16)[seed % 2]
+    relu, with_res = bool(rng.integers(0, 2)), bool(rng.integers(0, 2))
+    x, stats, r = _bn_operands(cuda, (rows, c), dtype, with_res, seed=seed)
+    x.view(-1)[::31] = float("nan")  # passes the ReLU, as torch.relu's
+    plan = fwd_plan(rows * c, c, x.element_size(), True)
+    got = bn_apply_relu_cuda(x, *stats, r, relu)
+    torch.cuda.synchronize()
+    want = bn_apply_relu_plain(x, *stats, r, relu)
+    assert torch.equal(got.isnan(), want.isnan()), plan
+    ok = ~want.isnan()
+    if dtype == torch.float32:
+        assert torch.equal(got[ok], want[ok]), plan
+    else:
+        assert bf16_ulps(got[ok], want[ok]) <= 1.0, plan
+
+
+def test_k2_forward_constants_equal_torch_rsqrt_bit_for_bit(cuda):
+    """The kernel computes a = scale * rsqrt(var + eps) and b = bias -
+    mean * a itself. With x = 1, bias = mean = 0 its output is a; with
+    x = 0 it is b: both equal fold_affine's PyTorch values bit for bit."""
+    c, rows = 921, 64
+    g = torch.Generator(cuda).manual_seed(7)
+    scale = torch.rand(c, device=cuda, generator=g) * 1.5 + 0.5
+    bias = torch.randn(c, device=cuda, generator=g)
+    mean = torch.randn(c, device=cuda, generator=g)
+    var = torch.rand(c, device=cuda, generator=g) * 2.7 + 1e-3
+    zero = torch.zeros_like(mean)
+    for eps in (1e-5, 1e-3):
+        a, b = fold_affine(scale, bias, mean, var, eps)
+        ones = torch.ones((rows, c), device=cuda)
+        got_a = bn_apply_relu_cuda(ones, scale, zero, zero, var, None, False,
+                                   eps)
+        got_b = bn_apply_relu_cuda(ones * 0, scale, bias, mean, var, None,
+                                   False, eps)
+        torch.cuda.synchronize()
+        assert torch.equal(got_a, fold_affine(scale, zero, zero, var,
+                                              eps)[0].expand(rows, c))
+        assert torch.equal(got_b, b.expand(rows, c))
+        x = torch.randn((rows, c), device=cuda, generator=g)
+        assert torch.equal(bn_apply_relu_cuda(x, scale, bias, mean, var,
+                                              None, False, eps),
+                           x * a + b)
+
+
+def test_k2_forward_is_one_kernel_and_one_allocation(cuda):
+    """Under torch.profiler a call of the wrapper is one CUDA kernel (the
+    forward's) and no PyTorch op beyond the allocation of y."""
+    from torch.profiler import ProfilerActivity, profile
+
+    x, stats, r = _bn_operands(cuda, (2, 4, 14, 14, 230), torch.bfloat16,
+                               True)
+    bn_apply_relu_cuda(x, *stats, r, True)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        bn_apply_relu_cuda(x, *stats, r, True)
+        torch.cuda.synchronize()
+    kernels = [e.name for e in prof.events()
+               if e.device_type == torch.autograd.DeviceType.CUDA]
+    assert len(kernels) == 1 and "bn_apply_relu" in kernels[0], kernels
+    ops = {e.name for e in prof.events()
+           if e.device_type == torch.autograd.DeviceType.CPU
+           and e.name.startswith("aten::")}
+    assert ops <= {"aten::empty_like", "aten::empty_strided",
+                   "aten::empty"}, ops
 
 
 def test_k2_index_past_2_pow_31(cuda):

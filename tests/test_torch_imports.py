@@ -132,7 +132,9 @@ def _sources():
     files = [os.path.join(ROOT, "chip_smoke.py"),
              os.path.join(ROOT, "tools", "profile_serve.py"),
              os.path.join(ROOT, "tools", "profile_train.py"),
-             os.path.join(ROOT, "tools", "profile_k3.py")]
+             os.path.join(ROOT, "tools", "profile_k3.py"),
+             os.path.join(ROOT, "tools", "profile_kernels.py"),
+             os.path.join(ROOT, "tools", "profile_k1.py")]
     for d, _, names in os.walk(os.path.dirname(port.__file__)):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -142,7 +144,8 @@ def _sources():
                                   for p in _sources()])
 def test_no_source_imports_the_jax_package(path):
     """No `import` / `from` line of the port, chip_smoke.py or
-    tools/profile_{serve,train,k3}.py names jax or zeroshotvideoclassification_tpu
+    tools/profile_{serve,train,k3,kernels,k1}.py names jax or
+    zeroshotvideoclassification_tpu
     (without _torch), nor does an importlib / __import__ call."""
     bad = re.compile(
         r"^\s*(from|import)\s+(jax|jaxlib|zeroshotvideoclassification_tpu)"

@@ -20,7 +20,8 @@ serialises concurrent builds. Nothing here runs at import: the first
 kernel launch calls library().
 
 Wrappers pass every pointer and the CUDA stream as a Python int
-(ctypes.c_void_p); each entry point returns cudaGetLastError().
+(ctypes.c_void_p); each entry point returns cudaGetLastError(), which
+launch() turns into an exception.
 """
 
 from __future__ import annotations
@@ -37,6 +38,8 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import torch
+
 _PKG = Path(__file__).resolve().parent
 CSRC = _PKG / "csrc"
 BUILD_ROOT = _PKG.parent / "build" / "torch_kernels"
@@ -49,14 +52,14 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
                    ctypes.c_float)
 # entry point -> argtypes (every pointer and the stream are c_void_p)
 SIGNATURES = {
-    "zsvc_video_transform_f32": [_P] * 8 + [_I] * 5 + [_P],
-    "zsvc_video_transform_bf16": [_P] * 8 + [_I] * 5 + [_P],
+    "zsvc_video_transform_f32": [_P] * 8 + [_I] * 9 + [_P],
+    "zsvc_video_transform_bf16": [_P] * 8 + [_I] * 9 + [_P],
     "zsvc_image_motion_transform_f32": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
     "zsvc_image_motion_transform_bf16": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
     "zsvc_temporal_conv3_f32": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
     "zsvc_temporal_conv3_bf16": [_P] * 4 + [_I] * 10 + [_P],
-    "zsvc_bn_apply_relu_f32": [_P] * 5 + [_LL, _I, _I, _P],
-    "zsvc_bn_apply_relu_bf16": [_P] * 5 + [_LL, _I, _I, _P],
+    "zsvc_bn_apply_relu_f32": [_P] * 6 + [_F, _P, _LL] + [_I] * 8 + [_P],
+    "zsvc_bn_apply_relu_bf16": [_P] * 6 + [_F, _P, _LL] + [_I] * 8 + [_P],
     "zsvc_bn_bwd_f32": [_P] * 6 + [_F] + [_P] * 4 + [_LL] + [_I] * 9 + [_P],
     "zsvc_bn_bwd_bf16": [_P] * 6 + [_F] + [_P] * 4 + [_LL] + [_I] * 9 + [_P],
 }
@@ -166,3 +169,16 @@ def check(err: int, what: str) -> None:
     """Raise if a launch returned a CUDA error code."""
     if err != 0:
         raise RuntimeError(f"{what}: CUDA error {err} at launch")
+
+
+def launch(fn, args, device, what: str, plan=None) -> None:
+    """Call the entry point fn(*args, stream) on the current stream of
+    `device` (entering the device only when it is not the current one) and
+    raise if the launch failed, naming `what` and the `plan`."""
+    if device.index == torch.cuda.current_device():
+        err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    else:
+        with torch.cuda.device(device):
+            err = fn(*args, torch.cuda.current_stream().cuda_stream)
+    if err != 0:
+        check(err, what if plan is None else f"{what} ({plan})")

@@ -5,22 +5,28 @@
 // bn_pallas.py:bn_apply_relu_pallas (_fwd_kernel, _fwd_res_kernel):
 //
 //   y = [relu](x * a[c] + b[c] [+ r])      c = i % C
+//   a = scale * rsqrt(var + eps),  b = bias - mean * a     (float32,
+//                                                  bn_pallas.py:144-146)
 //
-// on a channels-last contiguous tensor, where the caller has folded the
-// eval-mode statistics into a = scale * rsqrt(var + eps) and
-// b = bias - mean * a (float32, bn_pallas.py:144-146). The math is float32
-// with one rounding at the store: under bf16 the residual add rounds once,
-// as in bn_pallas, where the unfused path rounds after BN and again after
-// the add.
+// on a channels-last contiguous tensor. The math is float32 with one
+// rounding at the store: under bf16 the residual add rounds once, as in
+// bn_pallas, where the unfused path rounds after BN and again after the add.
 //
 // Bound: bytes. One read of x (and r) and one write of y, about 0.5 flop per
-// byte. The plain PyTorch chain spends six passes over the tensor (cast,
-// mul, add, add, relu, cast); this kernel spends one. Design: a grid-stride
-// loop over the flat index, with a 32-bit index wherever the tensor allows
-// it (the channel is a modulo on every element). The TPU kernel's
-// lane-folding of W into the channel axis has no purpose here: a GPU thread
-// reads any channel count at full coalescing. Vector loads are left for
-// later.
+// byte; 37 launches a forward, most of them a few MB, so the host's cost of
+// a call counts as much as the device's. Design: the tensor is seen as
+// [rows, Wf] with Wf = m * C (m consecutive [.., C] rows folded into one;
+// ops/bn_cuda.fwd_plan picks m so that Wf is a multiple of the vector width
+// and fills whole warps). A thread owns kVec CONSECUTIVE columns (16 bytes:
+// 8 bf16 or 4 float32), computes their a and b once in registers from
+// scale, bias, mean, var and eps (no PyTorch op prepares them: a call is one
+// allocation and one launch), and walks a chunk of rows two at a time: per
+// row one 16-byte load of x (and of r) and one 16-byte store of y. The grid
+// has enough chunks of rows to fill the card several times over. The ragged
+// last folded row takes a scalar tail; tensors that are not 16-byte aligned
+// take the same kernel at kVec = 1. No FMA contraction: rsqrtf and the
+// separate roundings give the plain version's float32 values (fold_affine
+// and the chain of PyTorch ops in ops/bn_cuda.bn_apply_relu_plain).
 //
 // BACKWARD. Replaces bn_pallas.py:_bwd (_bwd_kernel): with
 // g = dy * (y > 0) under ReLU (the mask read from the stored, already
@@ -79,67 +85,6 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16_rn(v);
 }
 
-template <typename T, bool kResidual, bool kRelu, typename IndexT>
-__global__ void bn_apply_relu_kernel(const T* __restrict__ x,
-                                     const T* __restrict__ r,
-                                     const float* __restrict__ a,
-                                     const float* __restrict__ b,
-                                     T* __restrict__ y, IndexT n, int C) {
-  const IndexT stride = static_cast<IndexT>(gridDim.x) * blockDim.x;
-  for (IndexT i = static_cast<IndexT>(blockIdx.x) * blockDim.x + threadIdx.x;
-       i < n; i += stride) {
-    const int c = static_cast<int>(i % static_cast<IndexT>(C));
-    // separate roundings, no FMA: the order of the plain version
-    float v = __fadd_rn(__fmul_rn(load(x + i), a[c]), b[c]);
-    if (kResidual) v = __fadd_rn(v, load(r + i));
-    if (kRelu) v = v < 0.0f ? 0.0f : v;  // NaN passes, as in torch.relu
-    store(y + i, v);
-  }
-}
-
-template <typename T, bool kResidual, bool kRelu>
-void launch_typed(const void* x, const void* r, const void* a, const void* b,
-                  void* y, long long n, int C, cudaStream_t stream) {
-  constexpr int kThreads = 256;
-  const long long want = (n + kThreads - 1) / kThreads;
-  const int blocks = static_cast<int>(want < (1 << 20) ? want : (1 << 20));
-  const T* xt = static_cast<const T*>(x);
-  const T* rt = static_cast<const T*>(r);
-  const float* at = static_cast<const float*>(a);
-  const float* bt = static_cast<const float*>(b);
-  T* yt = static_cast<T*>(y);
-  if (n < (1LL << 31)) {
-    bn_apply_relu_kernel<T, kResidual, kRelu, uint32_t>
-        <<<blocks, kThreads, 0, stream>>>(xt, rt, at, bt, yt,
-                                          static_cast<uint32_t>(n), C);
-  } else {
-    bn_apply_relu_kernel<T, kResidual, kRelu, uint64_t>
-        <<<blocks, kThreads, 0, stream>>>(xt, rt, at, bt, yt,
-                                          static_cast<uint64_t>(n), C);
-  }
-}
-
-template <typename T>
-int launch(const void* x, const void* r, const void* a, const void* b, void* y,
-           long long n, int C, int relu, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (r != nullptr) {
-    if (relu) launch_typed<T, true, true>(x, r, a, b, y, n, C, s);
-    else      launch_typed<T, true, false>(x, r, a, b, y, n, C, s);
-  } else {
-    if (relu) launch_typed<T, false, true>(x, r, a, b, y, n, C, s);
-    else      launch_typed<T, false, false>(x, r, a, b, y, n, C, s);
-  }
-  return static_cast<int>(cudaGetLastError());
-}
-
-// ---------------------------------------------------------------- backward ---
-
-constexpr int kBwdMaxThreads = 512;  // pass 1: threads per block, at most
-constexpr int kBwdUnroll = 2;        // pass 1: rows in flight per thread
-constexpr int kRedLanes = 32;        // pass 2: channels per block ...
-constexpr int kRedRows = 32;         // ... times strides over the partials
-
 template <typename T, int kVec>
 struct Pack;  // kVec consecutive elements as one access
 template <>
@@ -169,6 +114,176 @@ __device__ __forceinline__ void store_pack(T* p, const float (&v)[kVec]) {
   *reinterpret_cast<typename Pack<T, kVec>::type*>(p) = raw;
 }
 
+constexpr int kMaxThreads = 512;  // threads per block, at most (both plans)
+constexpr int kUnroll = 2;         // rows in flight per thread (both kernels)
+
+// The plan (ops/bn_cuda.fwd_plan or bwd_plan) against this source and the
+// pointers: Wf a multiple of C and of vec, vec 1 or the 16-byte width (then
+// every pointer 16-byte aligned), col_tiles blocks of `threads` threads
+// cover Wf / vec columns, chunks * rows_per_chunk cover ceil(n / Wf) rows.
+template <typename T>
+bool plan_ok(long long n, int C, int Wf, int vec, int threads, int col_tiles,
+             int chunks, int rows_per_chunk,
+             std::initializer_list<const void*> ptrs) {
+  constexpr int kFull = 16 / static_cast<int>(sizeof(T));
+  const long long rows = (n + Wf - 1) / Wf;
+  bool ok = C >= 1 && Wf >= C && (vec == 1 || vec == kFull) && Wf % C == 0 &&
+            Wf % vec == 0 && threads >= 32 && threads <= kMaxThreads &&
+            threads % 32 == 0 &&
+            static_cast<long long>(col_tiles) * threads * vec >= Wf &&
+            static_cast<long long>(col_tiles - 1) * threads * vec < Wf &&
+            chunks >= 1 && chunks <= 65535 && rows_per_chunk >= 1 &&
+            static_cast<long long>(chunks) * rows_per_chunk >= rows;
+  if (vec != 1) {
+    for (const void* p : ptrs)
+      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
+  }
+  return ok;
+}
+
+// --------------------------------------------------------------- forward ---
+
+template <bool kResidual, bool kRelu>
+__device__ __forceinline__ float fwd_element(float xv, float rv, float ac,
+                                             float bc) {
+  // separate roundings, no FMA: the order of the plain version
+  float v = __fadd_rn(__fmul_rn(xv, ac), bc);
+  if (kResidual) v = __fadd_rn(v, rv);
+  if (kRelu) v = v < 0.0f ? 0.0f : v;  // NaN passes, as in torch.relu
+  return v;
+}
+
+template <typename T, int kVec, bool kResidual, bool kRelu, typename IndexT>
+__global__ void __launch_bounds__(kMaxThreads) bn_apply_relu_kernel(
+    const T* __restrict__ x, const T* __restrict__ r,
+    const float* __restrict__ scale, const float* __restrict__ bias,
+    const float* __restrict__ mean, const float* __restrict__ var, float eps,
+    T* __restrict__ y, IndexT n, int C, int Wf, IndexT rows,
+    int rows_per_chunk) {
+  const int j = (blockIdx.x * blockDim.x + threadIdx.x) * kVec;
+  if (j >= Wf) return;  // Wf % kVec == 0: all of a thread's columns or none
+  float ac[kVec], bc[kVec];
+#pragma unroll
+  for (int k = 0; k < kVec; ++k) {  // fold_affine's order
+    const int c = (j + k) % C;
+    const float sinv = rsqrtf(__fadd_rn(var[c], eps));
+    ac[k] = __fmul_rn(scale[c], sinv);
+    bc[k] = __fsub_rn(bias[c], __fmul_rn(mean[c], ac[k]));
+  }
+  const IndexT r0 = static_cast<IndexT>(blockIdx.y) * rows_per_chunk;
+  IndexT r1 = r0 + rows_per_chunk;
+  if (r1 > rows) r1 = rows;
+  // rows of which every column exists (all but a ragged last one)
+  const IndexT full = n / static_cast<IndexT>(Wf);
+  IndexT r1_full = r1 < full ? r1 : full;
+  if (r1_full < r0) r1_full = r0;
+  IndexT row = r0;
+  for (; row + kUnroll <= r1_full; row += kUnroll) {
+    float xv[kUnroll][kVec], rv[kUnroll][kVec];
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      const IndexT i = (row + u) * Wf + j;
+      load_pack<T, kVec>(x + i, xv[u]);
+      if (kResidual) load_pack<T, kVec>(r + i, rv[u]);
+    }
+#pragma unroll
+    for (int u = 0; u < kUnroll; ++u) {
+      float yv[kVec];
+#pragma unroll
+      for (int k = 0; k < kVec; ++k)
+        yv[k] = fwd_element<kResidual, kRelu>(
+            xv[u][k], kResidual ? rv[u][k] : 0.0f, ac[k], bc[k]);
+      store_pack<T, kVec>(y + (row + u) * Wf + j, yv);
+    }
+  }
+  for (; row < r1_full; ++row) {  // a last whole row of an odd count
+    const IndexT i = row * Wf + j;
+    float xv[kVec], rv[kVec], yv[kVec];
+    load_pack<T, kVec>(x + i, xv);
+    if (kResidual) load_pack<T, kVec>(r + i, rv);
+#pragma unroll
+    for (int k = 0; k < kVec; ++k)
+      yv[k] = fwd_element<kResidual, kRelu>(xv[k], kResidual ? rv[k] : 0.0f,
+                                            ac[k], bc[k]);
+    store_pack<T, kVec>(y + i, yv);
+  }
+  for (; row < r1; ++row) {  // the ragged last row, element by element
+#pragma unroll
+    for (int k = 0; k < kVec; ++k) {
+      const IndexT i = row * Wf + j + k;
+      if (i >= n) break;
+      store(y + i, fwd_element<kResidual, kRelu>(
+                       load(x + i), kResidual ? load(r + i) : 0.0f, ac[k],
+                       bc[k]));
+    }
+  }
+}
+
+template <typename T, int kVec, bool kResidual, bool kRelu>
+void launch_fwd_typed(const void* x, const void* r, const float* scale,
+                      const float* bias, const float* mean, const float* var,
+                      float eps, void* y, long long n, int C, int Wf,
+                      int threads, int col_tiles, int chunks,
+                      int rows_per_chunk, cudaStream_t stream) {
+  const dim3 grid(col_tiles, chunks);
+  const long long rows = (n + Wf - 1) / Wf;
+  const T* xt = static_cast<const T*>(x);
+  const T* rt = static_cast<const T*>(r);
+  T* yt = static_cast<T*>(y);
+  if (n < (1LL << 31)) {
+    bn_apply_relu_kernel<T, kVec, kResidual, kRelu, uint32_t>
+        <<<grid, threads, 0, stream>>>(
+            xt, rt, scale, bias, mean, var, eps, yt, static_cast<uint32_t>(n),
+            C, Wf, static_cast<uint32_t>(rows), rows_per_chunk);
+  } else {
+    bn_apply_relu_kernel<T, kVec, kResidual, kRelu, uint64_t>
+        <<<grid, threads, 0, stream>>>(
+            xt, rt, scale, bias, mean, var, eps, yt, static_cast<uint64_t>(n),
+            C, Wf, static_cast<uint64_t>(rows), rows_per_chunk);
+  }
+}
+
+template <typename T, int kVec, typename... Args>
+void launch_fwd_variant(bool residual, bool relu, Args... args) {
+  if (residual) {
+    if (relu) launch_fwd_typed<T, kVec, true, true>(args...);
+    else      launch_fwd_typed<T, kVec, true, false>(args...);
+  } else {
+    if (relu) launch_fwd_typed<T, kVec, false, true>(args...);
+    else      launch_fwd_typed<T, kVec, false, false>(args...);
+  }
+}
+
+template <typename T>
+int launch(const void* x, const void* r, const void* scale, const void* bias,
+           const void* mean, const void* var, float eps, void* y, long long n,
+           int C, int Wf, int vec, int threads, int col_tiles, int chunks,
+           int rows_per_chunk, int relu, void* stream) {
+  constexpr int kFull = 16 / static_cast<int>(sizeof(T));
+  if (!plan_ok<T>(n, C, Wf, vec, threads, col_tiles, chunks, rows_per_chunk,
+                  {x, r != nullptr ? r : x, static_cast<const void*>(y)}))
+    return static_cast<int>(cudaErrorInvalidValue);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  const float* sc = static_cast<const float*>(scale);
+  const float* bi = static_cast<const float*>(bias);
+  const float* mn = static_cast<const float*>(mean);
+  const float* vr = static_cast<const float*>(var);
+  if (vec == 1)
+    launch_fwd_variant<T, 1>(r != nullptr, relu != 0, x, r, sc, bi, mn, vr,
+                             eps, y, n, C, Wf, threads, col_tiles, chunks,
+                             rows_per_chunk, s);
+  else
+    launch_fwd_variant<T, kFull>(r != nullptr, relu != 0, x, r, sc, bi, mn,
+                                 vr, eps, y, n, C, Wf, threads, col_tiles,
+                                 chunks, rows_per_chunk, s);
+  return static_cast<int>(cudaGetLastError());
+}
+
+// ---------------------------------------------------------------- backward ---
+
+constexpr int kRedLanes = 32;  // pass 2: channels per block ...
+constexpr int kRedRows = 32;   // ... times strides over the partials
+
 // one element: g, dx, the two sums (the order of the plain version)
 template <bool kRelu>
 __device__ __forceinline__ float bwd_element(float xv, float yv, float dyv,
@@ -186,7 +301,7 @@ __device__ __forceinline__ float bwd_element(float xv, float yv, float dyv,
 }
 
 template <typename T, int kVec, bool kRelu, bool kWantG, typename IndexT>
-__global__ void __launch_bounds__(kBwdMaxThreads) bn_bwd_kernel(
+__global__ void __launch_bounds__(kMaxThreads) bn_bwd_kernel(
     const T* __restrict__ x, const T* __restrict__ y,
     const T* __restrict__ dy, const float* __restrict__ scale,
     const float* __restrict__ mean, const float* __restrict__ var, float eps,
@@ -216,17 +331,17 @@ __global__ void __launch_bounds__(kBwdMaxThreads) bn_bwd_kernel(
     IndexT r1_full = r1 < full ? r1 : full;
     if (r1_full < r0) r1_full = r0;
     IndexT r = r0;
-    for (; r + kBwdUnroll <= r1_full; r += kBwdUnroll) {
-      float xv[kBwdUnroll][kVec], yv[kBwdUnroll][kVec], dv[kBwdUnroll][kVec];
+    for (; r + kUnroll <= r1_full; r += kUnroll) {
+      float xv[kUnroll][kVec], yv[kUnroll][kVec], dv[kUnroll][kVec];
 #pragma unroll
-      for (int u = 0; u < kBwdUnroll; ++u) {
+      for (int u = 0; u < kUnroll; ++u) {
         const IndexT i = (r + u) * Wf + j;
         load_pack<T, kVec>(x + i, xv[u]);
         load_pack<T, kVec>(dy + i, dv[u]);
         if (kRelu) load_pack<T, kVec>(y + i, yv[u]);
       }
 #pragma unroll
-      for (int u = 0; u < kBwdUnroll; ++u) {
+      for (int u = 0; u < kUnroll; ++u) {
         const IndexT i = (r + u) * Wf + j;
         float dxv[kVec], gv[kVec];
 #pragma unroll
@@ -371,19 +486,10 @@ int launch_bwd(const void* x, const void* y, const void* dy,
   const float* vr = static_cast<const float*>(var);
   float* pt = static_cast<float*>(partial);
   // refuse a plan that is not this source's or that the pointers do not fit
-  const long long rows = (n + Wf - 1) / Wf;
-  bool ok = (vec == 1 || vec == kFull) && Wf % C == 0 && Wf % vec == 0 &&
-            threads >= 32 && threads <= kBwdMaxThreads && threads % 32 == 0 &&
-            static_cast<long long>(col_tiles) * threads * vec >= Wf &&
-            static_cast<long long>(col_tiles - 1) * threads * vec < Wf &&
-            chunks >= 1 && chunks <= 65535 &&
-            static_cast<long long>(chunks) * rows_per_chunk >= rows;
-  if (vec != 1) {
-    for (const void* p : {x, dy, static_cast<const void*>(dx),
-                          relu ? y : x, g != nullptr ? g : x})
-      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  }
-  if (!ok) return static_cast<int>(cudaErrorInvalidValue);
+  if (!plan_ok<T>(n, C, Wf, vec, threads, col_tiles, chunks, rows_per_chunk,
+                  {x, dy, static_cast<const void*>(dx), relu ? y : x,
+                   g != nullptr ? g : x}))
+    return static_cast<int>(cudaErrorInvalidValue);
   if (passes & 1) {
     if (vec == 1)
       launch_bwd_variant<T, 1>(relu != 0, g != nullptr, x, y, dy, sc, mn, vr,
@@ -406,21 +512,36 @@ int launch_bwd(const void* x, const void* y, const void* dy,
 
 }  // namespace
 
-// Launch on `stream`; `r` may be NULL (no residual). Returns
-// cudaGetLastError() (0 = launched). The caller checks that x, r and y are
-// contiguous with C innermost, a and b are float32 [C], and n > 0.
+// Forward on `stream`; `r` may be NULL (no residual). The caller checks that
+// x, r and y are contiguous with C innermost, that scale, bias, mean and var
+// are float32 [C], and that n > 0. The plan (ops/bn_cuda.fwd_plan) is
+// checked here as the backward's is (plan_ok; with vec > 1 x, r and y must be
+// 16-byte aligned). Returns cudaErrorInvalidValue for a plan that fails,
+// else cudaGetLastError() (0 = launched).
 extern "C" int zsvc_bn_apply_relu_f32(const void* x, const void* r,
-                                      const void* a, const void* b, void* y,
-                                      long long n, int C, int relu,
+                                      const void* scale, const void* bias,
+                                      const void* mean, const void* var,
+                                      float eps, void* y, long long n, int C,
+                                      int Wf, int vec, int threads,
+                                      int col_tiles, int chunks,
+                                      int rows_per_chunk, int relu,
                                       void* stream) {
-  return launch<float>(x, r, a, b, y, n, C, relu, stream);
+  return launch<float>(x, r, scale, bias, mean, var, eps, y, n, C, Wf, vec,
+                       threads, col_tiles, chunks, rows_per_chunk, relu,
+                       stream);
 }
 
 extern "C" int zsvc_bn_apply_relu_bf16(const void* x, const void* r,
-                                       const void* a, const void* b, void* y,
-                                       long long n, int C, int relu,
+                                       const void* scale, const void* bias,
+                                       const void* mean, const void* var,
+                                       float eps, void* y, long long n, int C,
+                                       int Wf, int vec, int threads,
+                                       int col_tiles, int chunks,
+                                       int rows_per_chunk, int relu,
                                        void* stream) {
-  return launch<__nv_bfloat16>(x, r, a, b, y, n, C, relu, stream);
+  return launch<__nv_bfloat16>(x, r, scale, bias, mean, var, eps, y, n, C,
+                               Wf, vec, threads, col_tiles, chunks,
+                               rows_per_chunk, relu, stream);
 }
 
 // Backward on `stream`: pass 1 (passes & 1) and pass 2 (passes & 2); a call
@@ -433,7 +554,7 @@ extern "C" int zsvc_bn_apply_relu_bf16(const void* x, const void* r,
 // multiple of C and of vec, vec 1 or the 16-byte width (8 bf16, 4 float32;
 // then x, y, dy, dx and g must be 16-byte aligned), col_tiles blocks of
 // `threads` (a multiple of 32, at most 512) threads cover Wf / vec, chunks *
-// rows_per_chunk cover ceil(n / Wf) rows with chunks <= 65535. Returns
+// rows_per_chunk cover ceil(n / Wf) rows with chunks <= 65535 (plan_ok). Returns
 // cudaErrorInvalidValue for a plan that fails, else cudaGetLastError() of
 // the first launch that failed (0 = launched).
 extern "C" int zsvc_bn_bwd_f32(const void* x, const void* y, const void* dy,

@@ -21,8 +21,17 @@ chain rule runs through the graph autograd builds for the statistics
                          tensors to the two plain versions. Nothing falls
                          back from a kernel to a plain version.
   bn_apply_relu_cuda     forward kernel (csrc/bn_apply_relu.cu, replaces
-                         bn_pallas.py:bn_apply_relu_pallas/_fwd); launches
+                         bn_pallas.py:bn_apply_relu_pallas/_fwd). Bound by
+                         bytes (x, r read and y written once) and, at the
+                         small shapes, by the host: a call is one
+                         allocation and one launch and no other PyTorch op.
+                         A thread reads and writes 16 bytes a row (8 bf16 /
+                         4 float32 consecutive columns of the folded
+                         [rows, m * C] view `fwd_plan` picks) and computes
+                         its channels' a and b in registers. Launches
                          counted in `bn_apply_relu_cuda.launches`
+  fwd_prepare            the same call split into its allocation and its
+                         launch, for timing the launch alone
   bn_apply_relu_bwd_cuda backward kernels (same source, replace
                          bn_pallas.py:_bwd). Bound by bytes (x, y, dy read
                          and dx, g written once) and, at the small shapes,
@@ -45,7 +54,8 @@ chain rule runs through the graph autograd builds for the statistics
                          launch, for timing the launches alone
   bn_apply_relu_plain, bn_apply_relu_bwd_plain
                          the same two functions in plain PyTorch (float32
-                         inside), for the CPU and as the kernels' oracle
+                         inside; the forward folds the statistics with
+                         fold_affine), for the CPU and as the kernels' oracle
 
 Layout: x, residual, y and dy are [..., C], the channel innermost — the JAX
 package's layout, and the model's channels-last-3d activations seen through
@@ -115,10 +125,79 @@ def bn_apply_relu_plain(x, scale, bias, mean, var, residual=None,
     return y.to(x.dtype)
 
 
-def bn_apply_relu_cuda(x, scale, bias, mean, var, residual=None, relu=True,
-                       eps=1e-5):
-    """The epilogue as one launch of the CUDA kernel; contiguous CUDA
-    tensors only."""
+# ----------------------------------------------------------------- forward ---
+
+_MAX_THREADS = 512       # threads per block of either kernel, at most
+_BWD_MAX_BLOCKS = 264    # backward: most blocks (two for each of an H100's
+                         # 132 SMs): the partials pass 2 adds per channel
+_BWD_MIN_ROWS = 4        # backward: folded rows per chunk, at least (while
+                         # rows last)
+_FWD_ROWS = 8            # forward: folded rows per thread ...
+_FWD_MIN_BLOCKS = 264    # ... fewer where that leaves under two blocks for
+                         # each SM (while rows last)
+
+
+def _fold(n: int, c: int, vec: int):
+    """The folded width both kernels use: m consecutive rows of c make one
+    of width m * c, a multiple of `vec`; among those, the m and the block
+    size (a multiple of 32 up to 512 threads, `tiles` blocks across the
+    width) with the fewest idle threads, then the widest row. -> (m,
+    threads, tiles)."""
+    step = vec // math.gcd(c, vec)        # m must be a multiple of this
+    best = None
+    for m in range(step, max(step, _MAX_THREADS * vec // c) + 1, step):
+        cols = m * c // vec               # threads that have columns
+        tiles = -(-cols // _MAX_THREADS)
+        threads = -(-(-(-cols // tiles)) // 32) * 32
+        idle = 1.0 - cols / (tiles * threads)
+        key = (round(idle, 3), -m)
+        if best is None or key < best[0]:
+            best = (key, m, threads, tiles)
+        if m * c >= n:                    # one folded row holds it all
+            break
+    return best[1:]
+
+
+def _plan(n, c, vec, m, threads, tiles, chunks):
+    """The plan's dict, with chunks evened out over the folded rows."""
+    wf = m * c
+    rows = -(-n // wf)
+    chunks = max(1, min(chunks, 65535))
+    rows_per_chunk = -(-rows // chunks)
+    return {"wf": wf, "m": m, "vec": vec, "threads": threads,
+            "col_tiles": tiles, "chunks": -(-rows // rows_per_chunk),
+            "rows_per_chunk": rows_per_chunk,
+            "path": "vector16" if vec > 1 else "scalar"}
+
+
+@functools.lru_cache(maxsize=None)
+def fwd_plan(n: int, c: int, itemsize: int = 2, aligned: bool = True):
+    """How the forward cuts a [n / c, c] tensor of `itemsize`-byte elements.
+
+    The folded view and the block size are the backward's (`bwd_plan`): m
+    rows fold into one of width wf = m * c, a thread owns `vec` consecutive
+    columns (16 bytes; 1 when the tensors are not 16-byte `aligned`), and
+    `col_tiles` blocks of `threads` cover the width. There is no reduction,
+    so the blocks are not capped: the ceil(n / wf) folded rows split into
+    `chunks` of `rows_per_chunk` rows (8 a thread, fewer where that leaves
+    under 264 blocks, i.e. two for each of an H100's 132 SMs; at most 65535
+    chunks). -> dict with those keys and `path` ("vector16" or "scalar");
+    cached, so treat it as read-only."""
+    vec = 16 // itemsize if aligned else 1
+    m, threads, tiles = _fold(n, c, vec)
+    rows = -(-n // (m * c))
+    chunks = -(-rows // _FWD_ROWS)
+    if tiles * chunks < _FWD_MIN_BLOCKS:
+        chunks = min(rows, -(-_FWD_MIN_BLOCKS // tiles))
+    return _plan(n, c, vec, m, threads, tiles, chunks)
+
+
+def fwd_prepare(x, scale, bias, mean, var, residual=None, relu=True,
+                eps=1e-5):
+    """Check the operands, allocate y and plan the cut -> (launch, y):
+    `launch()` enqueues the kernel on the current stream and counts one
+    launch (for an empty x it does nothing); y holds the result once it
+    has run. x (and residual) must be contiguous CUDA tensors."""
     c = check_bn_args(x, scale, bias, mean, var, residual)
     for name, v in (("x", x), ("residual", residual)):
         if v is not None and not v.is_contiguous():
@@ -127,22 +206,37 @@ def bn_apply_relu_cuda(x, scale, bias, mean, var, residual=None, relu=True,
     if x.device.type != "cuda":
         raise ValueError(f"bn_apply_relu_cuda needs CUDA tensors, got "
                          f"{x.device}")
-    a, b = fold_affine(scale, bias, mean, var, eps)
     y = torch.empty_like(x)
+    keep = (x, residual, scale, bias, mean, var)  # alive until queued
     if x.numel() == 0:
-        return y
+        return (lambda: keep), y
+    aligned = x.data_ptr() % 16 == 0 and (residual is None
+                                          or residual.data_ptr() % 16 == 0)
+    plan = fwd_plan(x.numel(), c, x.element_size(), aligned)
     lib = _build.library()
     fn = (lib.zsvc_bn_apply_relu_f32 if x.dtype == torch.float32
           else lib.zsvc_bn_apply_relu_bf16)
-    with torch.cuda.device(x.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(x.data_ptr(),
-                 None if residual is None else residual.data_ptr(),
-                 a.data_ptr(), b.data_ptr(), y.data_ptr(), x.numel(), c,
-                 int(bool(relu)), stream)
-    _build.check(err, "bn_apply_relu")
-    with _count_lock:
-        bn_apply_relu_cuda.launches += 1
+    args = (x.data_ptr(), None if residual is None else residual.data_ptr(),
+            scale.data_ptr(), bias.data_ptr(), mean.data_ptr(),
+            var.data_ptr(), float(eps), y.data_ptr(), x.numel(), c,
+            plan["wf"], plan["vec"], plan["threads"], plan["col_tiles"],
+            plan["chunks"], plan["rows_per_chunk"], int(bool(relu)))
+
+    def launch():
+        _build.launch(fn, args, x.device, "bn_apply_relu", plan)
+        with _count_lock:
+            bn_apply_relu_cuda.launches += 1
+        return keep
+
+    return launch, y
+
+
+def bn_apply_relu_cuda(x, scale, bias, mean, var, residual=None, relu=True,
+                       eps=1e-5):
+    """The epilogue as one allocation and one launch of the CUDA kernel
+    (none for an empty x); contiguous CUDA tensors only."""
+    launch, y = fwd_prepare(x, scale, bias, mean, var, residual, relu, eps)
+    launch()
     return y
 
 
@@ -150,12 +244,6 @@ bn_apply_relu_cuda.launches = 0
 
 
 # ---------------------------------------------------------------- backward ---
-
-_BWD_MAX_THREADS = 512   # threads per block of the backward's first pass
-_BWD_MAX_BLOCKS = 264    # most blocks (two for each of an H100's 132 SMs):
-                         # the partials pass 2 adds per channel
-_BWD_MIN_ROWS = 4        # folded rows per chunk, at least (while rows last)
-
 
 @functools.lru_cache(maxsize=None)
 def bwd_plan(n: int, c: int, itemsize: int = 2, aligned: bool = True):
@@ -174,29 +262,10 @@ def bwd_plan(n: int, c: int, itemsize: int = 2, aligned: bool = True):
     65535 chunks. -> dict with those keys and `path` ("vector16" or
     "scalar"); cached, so treat it as read-only."""
     vec = 16 // itemsize if aligned else 1
-    step = vec // math.gcd(c, vec)        # m must be a multiple of this
-    best = None
-    for m in range(step, max(step, _BWD_MAX_THREADS * vec // c) + 1, step):
-        cols = m * c // vec               # threads that have columns
-        tiles = -(-cols // _BWD_MAX_THREADS)
-        threads = -(-(-(-cols // tiles)) // 32) * 32
-        idle = 1.0 - cols / (tiles * threads)
-        key = (round(idle, 3), -m)
-        if best is None or key < best[0]:
-            best = (key, m, threads, tiles)
-        if m * c >= n:                    # one folded row holds it all
-            break
-    _, m, threads, tiles = best
-    wf = m * c
-    rows = -(-n // wf)
-    chunks = max(1, min(-(-rows // _BWD_MIN_ROWS), _BWD_MAX_BLOCKS // tiles,
-                        65535))
-    rows_per_chunk = -(-rows // chunks)
-    chunks = -(-rows // rows_per_chunk)
-    return {"wf": wf, "m": m, "vec": vec, "threads": threads,
-            "col_tiles": tiles, "chunks": chunks,
-            "rows_per_chunk": rows_per_chunk,
-            "path": "vector16" if vec > 1 else "scalar"}
+    m, threads, tiles = _fold(n, c, vec)
+    rows = -(-n // (m * c))
+    return _plan(n, c, vec, m, threads, tiles,
+                 min(-(-rows // _BWD_MIN_ROWS), _BWD_MAX_BLOCKS // tiles))
 
 
 def _finish_bwd(s1, s2, scale, sinv, a):
@@ -270,13 +339,8 @@ def bwd_prepare(x, y, dy, scale, mean, var, relu=True, want_g=False,
     keep = (x, y, dy, scale, mean, var)  # alive until the launch is queued
 
     def launch(passes=3):
-        if x.device.index == torch.cuda.current_device():
-            err = fn(*args, passes, torch.cuda.current_stream().cuda_stream)
-        else:
-            with torch.cuda.device(x.device):
-                err = fn(*args, passes,
-                         torch.cuda.current_stream().cuda_stream)
-        _build.check(err, f"bn_apply_relu backward ({plan})")
+        _build.launch(fn, (*args, passes), x.device, "bn_apply_relu backward",
+                      plan)
         with _count_lock:
             bn_apply_relu_bwd_cuda.launches += 1
         return keep
