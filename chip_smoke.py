@@ -63,11 +63,24 @@ result line) if it fails:
      against the same two on the CPU from the same seeds (loss rtol 1e-4,
      parameters atol 2e-5 from a seeded non-zero Adam state); and one step
      on a NaN batch, which must leave parameters, moments and the step
-     count as they were;
-  8. K4 (image-motion transform) against its plain PyTorch version at the
-     SUN path's shape (16 images on a 256x342 canvas, 16 frames each, 112 x
-     112), f32 (atol 2e-6) and bf16 (1 ulp), kernel time beside the plain
-     time, and the antialiased transform's time per batch;
+     count as they were; the epoch through the entry point also writes
+     last.npz (--checkpoint_every 1) and, where its accuracy is above 0,
+     checkpoint.npz;
+ 7b. checkpoints: a second Experiment with --resume auto restores exactly
+     what last.npz holds (parameters, BN statistics, Adam's moments and
+     counters, the step count), goes on at epoch 1 in the run's directory
+     and trains it through the kernels (37 / 37 / 1 launches a step, finite
+     loss); --evaluate --weights on the best checkpoint gives the saving
+     epoch's embeddings of the test table (per-video cosine >= 0.999); and
+     the host time a checkpoint write takes from the step loop, written at
+     once against handed to the writer thread (train/async_ckpt.py);
+  8. K4 (image-motion transform, the same kernel template as K1) against
+     its plain PyTorch version at the SUN path's shape (16 images on a
+     256x342 canvas, 16 frames each, 112 x 112), f32 (atol 2e-6) and bf16
+     (1 ulp), the wrapper's time beside its launch alone (as in phase 3)
+     and the plain time, and the antialiased transform's time per batch;
+     K4's device time in a torch.profiler trace is taken after phase 10
+     (a profiler run makes every later launch cost the host more);
   9. SUN training through cli.main's Experiment at full width: an image
      table of seeded image files (sizes that pass through, get bounded up
      or down and get fitted to the canvas; one file missing) and the
@@ -96,7 +109,8 @@ version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
 operations at the published peak for their type; the measured copy
 bandwidth is printed beside it), the launch alone (launch_ms: K1, K2
-forward and backward; null where not split), and the time of the one
+forward and backward, K4; null where not split), K4's device time in a
+trace (trace_ms; null for the others), and the time of the one
 PyTorch call that computes the same function where there is one
 (library_ms; for K2 forward F.batch_norm at the epilogues without residual
 and ReLU, with the kernel's launch alone there in library_shapes_ms). The
@@ -851,6 +865,17 @@ def eval_forward_rate(exp, clips_per_dispatch, smi, tag):
     return out
 
 
+def train_argv(tmp, dev, dtype, bs, samples):
+    """The training CLI's arguments of phase 7 (one epoch, a last.npz and,
+    where the epoch's accuracy is above 0, a checkpoint.npz)."""
+    return ["--dataset", "synthetic", "--network", "r2plus1d_18",
+            "--bs", str(bs), "--train_samples", str(samples),
+            "--n_epochs", "1", "--compute_dtype", dtype, "--save_path",
+            os.path.join(tmp, "runs"), "--no-progressbar",
+            "--nopretrained", "--device", str(dev), "--checkpoint_every",
+            "1"]
+
+
 def phase_train(tmp, dev, smi, copy_gbs):
     """The training CLI's path at full width, then K1 on a training batch,
     timed steps, the float32 steps against the CPU, and the NaN step.
@@ -876,11 +901,7 @@ def phase_train(tmp, dev, smi, copy_gbs):
     )
 
     def argv(dtype, bs, samples):
-        return ["--dataset", "synthetic", "--network", "r2plus1d_18",
-                "--bs", str(bs), "--train_samples", str(samples),
-                "--n_epochs", "1", "--compute_dtype", dtype, "--save_path",
-                os.path.join(tmp, "runs"), "--no-progressbar",
-                "--nopretrained", "--device", str(dev)]
+        return train_argv(tmp, dev, dtype, bs, samples)
 
     # (a) the entry point: one epoch of TRAIN_STEPS batches of TRAIN_BS
     args = argv("bfloat16", TRAIN_BS, TRAIN_BS * TRAIN_STEPS)
@@ -1014,7 +1035,177 @@ def phase_train(tmp, dev, smi, copy_gbs):
         "f32_card_vs_cpu": {
             "loss_rel": rel, "param_max_abs": dmax, "cpu_seconds": s_cpu}}
     RECORD["k1_train"] = k1
-    return launches, k1
+    return launches, k1, summary
+
+
+def test_embeddings(exp, model=None):
+    """The unit embeddings [videos, 300] of exp's test table, as
+    Experiment.evaluate computes them (eval-mode BN, the run's dispatch),
+    by exp's model or `model`."""
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli.main import (
+        eval_batch_size,
+    )
+    from zeroshotvideoclassification_tpu_torch.config import transform_dtype
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        HostPipeline,
+        device_batch,
+    )
+    from zeroshotvideoclassification_tpu_torch.eval import extract_embeddings
+    from zeroshotvideoclassification_tpu_torch.train import eval_step
+
+    cfg, table = exp.config, exp.datasets["testing"][0]
+    bs = eval_batch_size(exp.global_bs, table.n_clips, 1, 1, len(table),
+                         cfg.eval_clip_budget)
+    batches = (device_batch(h, table.n_clips, cfg.clip_len,
+                            transform_dtype(cfg), exp.device)
+               for h in HostPipeline(table, cfg, bs, seed=cfg.seed))
+    model = exp.model if model is None else model
+    model.eval()
+    pred, _, _ = extract_embeddings(lambda x: eval_step(model, x), batches)
+    return torch.from_numpy(np.asarray(pred, np.float32))
+
+
+def phase_checkpoint(tmp, dev, smi, train_summary):
+    """Checkpoints on the card: phase 7's epoch wrote last.npz (and
+    checkpoint.npz where its accuracy is above 0); a second Experiment with
+    --resume auto holds exactly what the file holds (parameters, BN
+    statistics, Adam's moments and counters, the step count), starts at
+    epoch 1 and trains it through the kernels (37 / 37 / 1 launches a
+    step); --evaluate --weights on the best checkpoint gives the saving
+    epoch's embeddings (per-video cosine >= BF16_COSINE_BAR); and the host
+    time a checkpoint write takes from the step loop, written at once and
+    handed to the asynchronous writer. -> the record."""
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.config import (
+        config_from_namespace,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.datasets import (
+        build_datasets,
+    )
+    from zeroshotvideoclassification_tpu_torch.train import (
+        host_state,
+        read_meta,
+        save_checkpoint,
+    )
+    from zeroshotvideoclassification_tpu_torch.train.async_ckpt import (
+        AsyncCheckpointer,
+    )
+
+    args = train_argv(tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS * TRAIN_STEPS)
+    cfg = config_from_namespace(train_cli.build_arg_parser().parse_args(args))
+    base = cfg.savename(1)
+    best, last = (os.path.join(base, n) for n in ("checkpoint.npz",
+                                                  "last.npz"))
+    acc0 = train_summary["best_accuracy"]
+    check(os.path.exists(last) and read_meta(last)["epoch"] == 0,
+          f"phase 7 wrote no last.npz of epoch 0 under {base}")
+    check(os.path.exists(best) == (acc0 > 0),
+          f"checkpoint.npz written: {os.path.exists(best)}, best accuracy "
+          f"{acc0}")
+    say(f"[ckpt] phase 7 wrote {'checkpoint.npz and ' * (acc0 > 0)}"
+        f"last.npz (epoch 0, {os.path.getsize(last) / 1e6:.1f} MB)")
+
+    # (a) --resume auto: the state the file holds, epoch 1 through the
+    # kernels
+    rcfg = cfg.replace(resume="auto", n_epochs=2)
+    exp = train_cli.Experiment(rcfg, build_datasets(rcfg, None), device=dev)
+    check(exp.config.resume == last and exp.start_epoch == 1
+          and exp.savename == base, f"resumed {exp.config.resume} at "
+          f"{exp.start_epoch} into {exp.savename}")
+    snap = host_state(exp.train_step.state)
+    with np.load(last) as z:
+        held = set(z.files) - {"__meta__"}
+        check(held == set(snap), "the restored state's members")
+        differ = [k for k in held if z[k].dtype != snap[k].dtype
+                  or not np.array_equal(z[k], snap[k])]
+    check(not differ, f"restored state differs from last.npz: {differ[:5]}")
+    say(f"[ckpt] --resume auto: {len(held)} members of last.npz restored "
+        f"bit for bit (parameters, BN statistics, Adam's moments and "
+        f"counters, step {exp.train_step.state.step}); starts at epoch "
+        f"{exp.start_epoch} in the run's directory")
+    saved_emb = test_embeddings(exp)
+    # (b) --evaluate --weights on the best checkpoint (last.npz of epoch 0
+    # where no epoch improved on 0), before epoch 1 may write a better one:
+    # the saving epoch's embeddings
+    weights = best if acc0 > 0 else last
+    ecfg = cfg.replace(evaluate=True, weights=weights)
+    ev = train_cli.Experiment(ecfg, build_datasets(ecfg, None), device=dev)
+    emb = test_embeddings(exp, ev.model)  # the training run's test table
+    cos = float(torch.nn.functional.cosine_similarity(emb, saved_emb,
+                                                      dim=-1).min())
+    check(cos >= BF16_COSINE_BAR, f"--evaluate embeddings: cosine {cos}")
+    ev_summary = ev.run()
+    say(f"[ckpt] --evaluate --weights {os.path.basename(weights)}: "
+        f"embeddings of {emb.shape[0]} test videos at per-video cosine >= "
+        f"{cos:.6f} of the saving epoch's (bar {BF16_COSINE_BAR}); "
+        f"--evaluate's accuracy (its own clips a video) "
+        f"{ev_summary['synthetic_test_accuracy']:.1f}, the saving epoch's "
+        f"{train_summary['synthetic_test_accuracy']:.1f}")
+    del ev
+
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = exp.run()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    check(math.isfinite(summary["loss"]) and summary["loss"] > 0,
+          f"resumed loss {summary['loss']}")
+    check(exp.train_step.state.step == 2 * TRAIN_STEPS
+          and read_meta(last)["epoch"] == 1, "the resumed epoch")
+    check(launches == {"video_transform": TRAIN_STEPS + 1,
+                       "bn_apply_relu": 37 * (TRAIN_STEPS + 1),
+                       "bn_apply_relu_bwd": 37 * TRAIN_STEPS,
+                       "image_motion_transform": 0, "temporal_conv3": 0},
+          f"launches of the resumed epoch: {launches}")
+    say(f"[ckpt] resumed epoch 1: {TRAIN_STEPS} steps and the evaluation in "
+        f"{wall:.1f} s, mean loss {summary['loss']:.5f}, test accuracy "
+        f"{summary['synthetic_test_accuracy']:.1f}, launches {launches}")
+
+    # (c) what a write takes from the step loop: the state to host numpy
+    # and the npz written at once, or handed to the writer thread
+    state = exp.train_step.state
+    sync_ms, async_ms, writer_ms, host_ms = [], [], [], []
+    for k in range(2):
+        path = os.path.join(tmp, f"timed_{k}.npz")
+        t0 = time.perf_counter()
+        payload = host_state(state)
+        t1 = time.perf_counter()
+        save_checkpoint(path, payload, 1, 0.0, cfg.to_json())
+        t2 = time.perf_counter()
+        host_ms.append((t1 - t0) * 1e3)
+        sync_ms.append((t2 - t0) * 1e3)
+        ck = AsyncCheckpointer()
+        t0 = time.perf_counter()
+        ck.submit(path, host_state(state), 1, 0.0, cfg.to_json())
+        t1 = time.perf_counter()
+        ck.close()
+        t2 = time.perf_counter()
+        async_ms.append((t1 - t0) * 1e3)
+        writer_ms.append((t2 - t1) * 1e3)
+        os.unlink(path)
+    mb = os.path.getsize(last) / 1e6
+    say(f"[ckpt] a {mb:.1f} MB checkpoint takes from the step loop "
+        f"{statistics.median(sync_ms):.1f} ms written at once ({sync_ms}), "
+        f"{statistics.median(async_ms):.1f} ms through the writer thread "
+        f"({async_ms}: the state to host numpy, {host_ms} ms of it alone), "
+        f"which then writes for {statistics.median(writer_ms):.1f} ms  "
+        f"({smi})")
+    out = {"file_MB": mb, "restored_members": len(held),
+           "resumed_launches": launches, "resumed_summary": summary,
+           "resumed_seconds": wall, "evaluate_min_cosine": cos,
+           "evaluate_summary": ev_summary, "host_state_ms": host_ms,
+           "sync_write_ms": sync_ms, "async_submit_ms": async_ms,
+           "writer_ms": writer_ms}
+    RECORD["checkpoint"] = out
+    del exp
+    return out
 
 
 def sun_motion_args(dev, images=TRAIN_BS, seed=0):
@@ -1060,6 +1251,8 @@ def phase_k4(dev, copy_gbs, smi):
     )
     from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
         fused_image_motion_transform_cuda,
+        image_motion_prepare,
+        transform_plan,
     )
 
     args = sun_motion_args(dev)
@@ -1078,25 +1271,33 @@ def phase_k4(dev, copy_gbs, smi):
             check(ulps <= 1.0, f"K4 bf16: {ulps} ulp")
         ms = time_ms(lambda: fused_image_motion_transform_cuda(
             *args, CH_SCALE, CH_OFFSET, dt))
+        launch, _ = image_motion_prepare(*args, CH_SCALE, CH_OFFSET, dt)
+        launch_ms = run_ms(launch)
         plain = time_ms(lambda: fused_image_motion_transform(
             *args, CH_SCALE, CH_OFFSET, dt), reps=5)
         # images and taps read once, the output written once; ~12 float32
         # operations per output value (two lerps and the affine)
         nbytes = (sum(a.numel() * a.element_size() for a in args)
                   + got.numel() * got.element_size())
+        b, hc, wc, _ = args[0].shape
+        plan = transform_plan(b, CLIP_LEN, hc, wc, SIZE, got.element_size())
         row = {"shape": list(args[0].shape), "frames": CLIP_LEN,
                "dtype": str(dt)[6:], "max_abs_err": err, "bf16_ulps": ulps,
-               "ms": ms, "plain_ms": plain, "bytes": nbytes,
-               "flops": 12 * got.numel(),
-               "GB_per_s": nbytes / 1e9 / (ms / 1e3)}
+               "ms": ms, "launch_ms": launch_ms, "plain_ms": plain,
+               "bytes": nbytes, "flops": 12 * got.numel(), "plan": plan,
+               "GB_per_s": nbytes / 1e9 / (launch_ms / 1e3)}
         out["shapes"].append(row)
         say(f"[K4] images {'x'.join(map(str, row['shape']))} x {CLIP_LEN} "
             f"frames -> {row['dtype']}: err {err:.3g} ({ulps:.2f} bf16 ulp)  "
-            f"kernel {ms:.3f} ms ({row['GB_per_s']:.0f} GB/s)  plain "
-            f"{plain:.3f} ms")
+            f"wrapper {ms:.4f} ms, launch alone {launch_ms:.4f} ms "
+            f"({row['GB_per_s']:.0f} GB/s; {plan['blocks']} blocks of "
+            f"{plan['threads']} threads, a band of {plan['band_rows']} rows "
+            f"each, {plan['stage_rows']} rows staged, {plan['smem_bytes']} B "
+            f"shared)  plain {plain:.3f} ms")
         del got, want
     out["max_abs_err"] = max(r["max_abs_err"] for r in out["shapes"])
-    out["ms"], out["plain_ms"] = row["ms"], row["plain_ms"]
+    for k in ("ms", "launch_ms", "plain_ms"):
+        out[k] = row[k]
     say(f"[K4] SUN batch of {TRAIN_BS} -> bfloat16: "
         + bound(out, row["bytes"], row["flops"], copy_gbs))
 
@@ -1124,6 +1325,50 @@ def phase_k4(dev, copy_gbs, smi):
     out["antialiased_ms"], out["aa_mxu_vs_gather"] = aa_ms, aa_err
     RECORD["k4"] = out
     return out
+
+
+def k4_trace(dev, k4, smi):
+    """K4's device time in a torch.profiler trace of LAUNCH_RUN wrapper
+    calls at the SUN path's shape, f32 and bf16, into phase 8's record
+    (trace_ms: bf16). Run last: after a profiler run in a process, every
+    launch costs the host more, which would move the later phases'
+    timings."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+        CH_OFFSET,
+        CH_SCALE,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
+        fused_image_motion_transform_cuda,
+    )
+
+    args = sun_motion_args(dev)
+    for row, dt in zip(k4["shapes"], (torch.float32, torch.bfloat16)):
+        def call():
+            return fused_image_motion_transform_cuda(*args, CH_SCALE,
+                                                     CH_OFFSET, dt)
+
+        call()
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CPU,
+                                 ProfilerActivity.CUDA]) as prof:
+            for _ in range(LAUNCH_RUN):
+                call()
+            torch.cuda.synchronize()
+        kernels = [e for e in prof.events()
+                   if e.device_type == torch.autograd.DeviceType.CUDA
+                   and "ImageMotion" in e.name]
+        check(len(kernels) == LAUNCH_RUN,
+              f"K4 trace: {len(kernels)} kernels for {LAUNCH_RUN} calls")
+        row["trace_ms"] = sum(e.time_range.elapsed_us()
+                              for e in kernels) / 1e3 / LAUNCH_RUN
+        say(f"[K4] {row['dtype']}: {row['trace_ms']:.4f} ms of device time "
+            f"a call in a trace of {LAUNCH_RUN} calls (wrapper "
+            f"{row['ms']:.4f}, launch alone {row['launch_ms']:.4f}; bound "
+            f"{row['bytes'] / HBM_BYTES_PER_S * 1e3:.4f})  ({smi})")
+    k4["trace_ms"] = k4["shapes"][-1]["trace_ms"]
 
 
 def write_sun_images(tmp, n):
@@ -1662,12 +1907,16 @@ def main(argv=None):
         torch.cuda.empty_cache()
         k2b, k2_train = phase_k2_bwd(train_calls, dev, copy_gbs)
         torch.cuda.empty_cache()
-        train_launches, k1_train = phase_train(tmp, dev, smi, copy_gbs)
+        train_launches, k1_train, train_summary = phase_train(
+            tmp, dev, smi, copy_gbs)
+        torch.cuda.empty_cache()
+        phase_checkpoint(tmp, dev, smi, train_summary)
         torch.cuda.empty_cache()
         k4 = phase_k4(dev, copy_gbs, smi)
         sun_launches, _ = phase_sun(tmp, dev, smi)
         torch.cuda.empty_cache()
         k3_launches, k3 = phase_k3(dev, copy_gbs, smi)
+        k4_trace(dev, k4, smi)
 
     outside = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "zeroshotvideoclassification_tpu")]
@@ -1683,6 +1932,7 @@ def main(argv=None):
                 "launches": launches[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
                 "launch_ms": rec.get("launch_ms", rec.get("launches_ms")),
+                "trace_ms": rec.get("trace_ms"),
                 "plain_ms": rec["plain_ms"], "bound_ms": rec["bound_ms"],
                 "bound_by": rec["bound_by"],
                 "copy_bound_ms": rec["copy_bound_ms"],
@@ -1702,7 +1952,7 @@ def main(argv=None):
             train_launches, k2_train),
         row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
             "train", train_launches, k2b),
-        row("image_motion_transform", "image_motion_transform.cu",
+        row("image_motion_transform", "video_transform.cu",
             "resample_pallas.py:131", "train_sun", sun_launches, k4),
         # the SUN path's other kernels run at the video training path's
         # shapes (16 clips a step; 16 one-clip videos an evaluation

@@ -205,19 +205,82 @@ def test_k1_at_the_grid_limit(cuda):
 
 
 def _motion_args(dev, b=3, t=5, hw=(180, 221), canvas=(200, 230), seed=0,
-                 trajectories=None):
+                 trajectories=None, s=112, shuffle=False):
     rng = np.random.default_rng(seed)
     imgs = np.zeros((b, *canvas, 3), np.uint8)
     imgs[:, :hw[0], :hw[1]] = rng.integers(0, 256, (b, *hw, 3),
                                            dtype=np.uint8)
     idx = []
     for k in range(b):
-        traj = (camera_motion_trajectory(hw, 112, t, rng)
+        traj = (camera_motion_trajectory(hw, s, t, rng)
                 if trajectories is None else np.asarray(trajectories))
-        idx.append(motion_resample_indices(traj, hw, 112))
+        idx.append(motion_resample_indices(traj, hw, s))
     taps = [np.stack([idx[k][j] for k in range(b)]) for j in range(6)]
+    if shuffle:  # row taps in random order, second row taps anywhere
+        perm = rng.permutation(s)
+        for j in (0, 1, 2):
+            taps[j] = taps[j][..., perm]
+        taps[1] = rng.integers(0, canvas[0], taps[1].shape).astype(np.int32)
     return [torch.from_numpy(np.ascontiguousarray(a)).to(dev)
             for a in (imgs, *taps)]
+
+
+def _assert_k4(args, out_dtype=torch.float32):
+    before = fused_image_motion_transform_cuda.launches
+    got = fused_image_motion_transform_cuda(*args, CH_SCALE, CH_OFFSET,
+                                            out_dtype)
+    torch.cuda.synchronize()
+    assert fused_image_motion_transform_cuda.launches == before + 1
+    want = fused_image_motion_transform(*args, CH_SCALE, CH_OFFSET, out_dtype)
+    if out_dtype == torch.float32:
+        torch.testing.assert_close(got, want, atol=2e-6, rtol=0)
+    else:
+        assert bf16_ulps(got, want) <= 1.0
+    return got
+
+
+@pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])
+def test_k4_at_the_sun_shape(cuda, out_dtype):
+    """The SUN path's shape: 16 images on the 256 x 342 canvas, 16 frames
+    of 112 x 112 each, under the plan that stages each band's whole span."""
+    args = _motion_args(cuda, b=16, t=16, hw=(240, 330), canvas=(256, 342),
+                        seed=3)
+    assert transform_plan(16, 16, 256, 342, 112,
+                          2 if out_dtype == torch.bfloat16 else 4)[
+                              "whole_span"]
+    _assert_k4(args, out_dtype)
+
+
+@pytest.mark.parametrize("hc", [131, 400])
+def test_k4_odd_side_and_non_monotone_taps(cuda, hc):
+    """An odd output side (97) on an odd canvas, then row taps in random
+    order with second taps anywhere in images 131 and 400 rows tall: bands
+    whose span exceeds the staging area are done in pieces, and output rows
+    whose two taps lie far apart stage just those two rows."""
+    args = _motion_args(cuda, b=2, t=3, hw=(120, 150), canvas=(131, 173),
+                        seed=4, s=97)
+    for dt in (torch.float32, torch.bfloat16):
+        _assert_k4(args, dt)
+    args = _motion_args(cuda, b=3, t=2, hw=(hc - 5, 170), canvas=(hc, 173),
+                        seed=5, shuffle=True)
+    assert transform_plan(3, 2, hc, 173, 112, 4)["stage_rows"] < hc
+    for dt in (torch.float32, torch.bfloat16):
+        _assert_k4(args, dt)
+
+
+def test_k4_images_off_the_16_byte_grid(cuda):
+    """Images that are a contiguous view a few bytes into their buffer: the
+    staging copies take their cut pieces at other places, the result does
+    not change by a bit."""
+    args = _motion_args(cuda, b=2, t=3, seed=6)
+    want = fused_image_motion_transform_cuda(*args, CH_SCALE, CH_OFFSET)
+    for off in (1, 5, 13):
+        buf = torch.empty(args[0].numel() + 16, dtype=torch.uint8,
+                          device=cuda)
+        view = buf[off:off + args[0].numel()].view(args[0].shape)
+        view.copy_(args[0])
+        assert view.data_ptr() % 16 != 0 and view.is_contiguous()
+        assert torch.equal(_assert_k4([view, *args[1:]]), want)
 
 
 @pytest.mark.parametrize("out_dtype", [torch.float32, torch.bfloat16])

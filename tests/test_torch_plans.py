@@ -2,9 +2,10 @@
 Python and so testable without a GPU: K2's cuts of a [n / C, C] tensor
 (ops/bn_cuda.fwd_plan, bwd_plan) as properties over every epilogue shape of
 r2plus1d_18 and over random (n, C), numpy walks of the kernels' index and
-summation schemes under those plans against the plain versions, K1's bands
-and staging (ops/resample_cuda.transform_plan) walked in numpy over the
-pipeline's canvases against the plain transform, and K3's resident plan
+summation schemes under those plans against the plain versions, K1's and
+K4's bands and staging (ops/resample_cuda.transform_plan, one plan for the
+one kernel template) walked in numpy over the pipeline's canvases and the
+SUN path's images against the plain transforms, and K3's resident plan
 filling the card."""
 
 import importlib.util
@@ -22,6 +23,7 @@ from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     fwd_plan,
 )
 from zeroshotvideoclassification_tpu_torch.ops.resample import (
+    fused_image_motion_transform,
     fused_video_transform,
 )
 from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
@@ -280,21 +282,30 @@ def _pieces(g0, nbytes):
     return ga, g0 - ga
 
 
-def _walk_k1(canvas, taps, plan, canvas_addr=0, out_addr=0, itemsize=4):
-    """K1's scheme under `plan` in numpy float32, block by block of the
-    grid (band x, frame y): the band's taps; where its span fits
-    stage_rows, the span staged at once, else pieces (runs of output rows
-    whose span fits, or the pair of rows of one output row), each staged
-    and computed in turn. Rows are staged at their address's 16-byte phase
-    in a staging area of the planned size (unstaged bytes read as -1 and
-    fail, and a pixel's two words must lie inside the area), the pixels
-    computed in the plain version's order (bytes made floats by the
-    kernel's add, /2 as * 0.5) into a tile at the output's phase, which
-    leaves in 16-byte pieces. -> (out [B, T, S, S, 3], how often each
-    element was written)."""
+def _walk_bands(canvas, taps, plan, canvas_addr=0, out_addr=0, itemsize=4,
+                affine=None):
+    """The band scheme of csrc/video_transform.cu under `plan` in numpy
+    float32, block by block of the grid (band x, frame y): K1 on a canvas
+    [B, T, Hc, Wc, 3] with taps [B, S], or, with `affine` = (scale,
+    offset), K4 on images [B, Hc, Wc, 3] with per-frame taps [B, T, S].
+    The band's taps; where its span fits stage_rows, the span staged at
+    once, else pieces (runs of output rows whose span fits, or the pair of
+    rows of one output row), each staged and computed in turn. Rows are
+    staged at their address's 16-byte phase in a staging area of the
+    planned size (unstaged bytes read as -1 and fail, and a pixel's two
+    words must lie inside the area), the pixels computed in the plain
+    version's order (bytes made floats by the kernel's add; K1's /2 as *
+    0.5) into a tile at the output's phase, which leaves in 16-byte pieces.
+    -> (out [B, T, S, S, 3], how often each element was written)."""
     y0, y1, wy, x0, x1, wx = (np.asarray(a) for a in taps)
-    nb, nt, hc, wc, _ = canvas.shape
-    s, band, cap = y0.shape[1], plan["band_rows"], plan["stage_rows"]
+    if affine is None:
+        nb, nt, hc, wc, _ = canvas.shape
+    else:
+        (nb, hc, wc, _), nt = canvas.shape, y0.shape[1]
+    s, band, cap = y0.shape[-1], plan["band_rows"], plan["stage_rows"]
+    # a frame's row of taps: its sample's (K1) or its own (K4)
+    y0, y1, wy, x0, x1, wx = (a.reshape(-1, s) for a in (y0, y1, wy, x0, x1,
+                                                          wx))
     rowb = wc * 3
     assert plan["smem_bytes"] == k1_smem_bytes(band, cap, s, wc, itemsize)
     assert plan["smem_bytes"] <= K1_SMEM_MAX
@@ -306,7 +317,8 @@ def _walk_k1(canvas, taps, plan, canvas_addr=0, out_addr=0, itemsize=4):
     one = np.float32(1)
     for frame, oy0 in itertools.product(range(nb * nt),
                                         range(0, plan["bands"] * band, band)):
-        b = frame // nt
+        b = frame // nt if affine is None else frame
+        src_frame = frame if affine is None else frame // nt
         xa = np.clip(x0[b], 0, wc - 1) * 3
         xb = np.clip(x1[b], 0, wc - 1) * 3
         fx = wx[b]
@@ -323,10 +335,10 @@ def _walk_k1(canvas, taps, plan, canvas_addr=0, out_addr=0, itemsize=4):
         stage = np.full(_align16(cap * rowb + 64), -1, np.int16)
 
         def stage_run(area, row, nrow):
-            """Canvas rows row.. of the frame into the staging area from
+            """Source rows row.. of the frame into the staging area from
             byte `area` on, at their address's 16-byte phase; -> where
             they start."""
-            src = (frame * hc + row) * rowb
+            src = (src_frame * hc + row) * rowb
             _, mis = _pieces(canvas_addr + src, nrow * rowb)
             assert area + mis + nrow * rowb <= stage.size
             stage[area + mis:area + mis + nrow * rowb] = (
@@ -351,7 +363,10 @@ def _walk_k1(canvas, taps, plan, canvas_addr=0, out_addr=0, itemsize=4):
             ca = px(ra, xa) * gy + px(rb, xa) * wyv
             cb = px(ra, xb) * gy + px(rb, xb) * wyv
             v = ca * gx[None, :, None] + cb * fx[None, :, None]
-            v = ((v / np.float32(255)) - one) * np.float32(0.5)
+            if affine is None:
+                v = ((v / np.float32(255)) - one) * np.float32(0.5)
+            else:
+                v = v * affine[0] + affine[1]
             e0 = go_mis + i0 * s * 3
             tile[e0:e0 + v.size] = v.reshape(-1)
 
@@ -437,7 +452,7 @@ def _odd_case(seed, b=2, t=3, hc=131, wc=173, shuffle=False):
 
 
 def _assert_k1_walk(canvas, taps, plan, **addr):
-    got, writes = _walk_k1(canvas, taps, plan, **addr)
+    got, writes = _walk_bands(canvas, taps, plan, **addr)
     want = fused_video_transform(
         *(torch.from_numpy(np.ascontiguousarray(a)) for a in (canvas, *taps)))
     assert (writes == 1).all()
@@ -516,6 +531,119 @@ def test_transform_plan_fits_any_canvas(shape, itemsize):
         transform_plan(65536, 1, hc, wc, s, itemsize)
     with pytest.raises(ValueError, match="shared memory"):
         transform_plan(1, 1, hc, 40000, s, itemsize)
+
+
+def _sun_images(seed, b, t, s=112, canvas=(256, 342), sizes=None,
+                trajectory=None, shuffle=False):
+    """K4's operands as the SUN path builds them: b seeded images on the
+    canvas in several true sizes ((100, 340): side-112 boxes overhang it),
+    and for each of t frames a crop box turned into taps by the port's host
+    functions ([b, t, s] each); `shuffle` makes the row taps non-monotone
+    and puts every second row tap anywhere in the canvas."""
+    from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+        camera_motion_trajectory,
+        motion_resample_indices,
+    )
+
+    rng = np.random.default_rng(seed)
+    hc, wc = canvas
+    sizes = sizes or [(hc, wc), (200, 260), (256, 300), (172, 342),
+                      (100, 340)]
+    images = np.zeros((b, hc, wc, 3), np.uint8)
+    taps = [[] for _ in range(6)]
+    for k in range(b):
+        h, w = sizes[k % len(sizes)]
+        images[k, :h, :w] = rng.integers(0, 256, (h, w, 3), dtype=np.uint8)
+        traj = (camera_motion_trajectory((h, w), s, t, rng)
+                if trajectory is None else np.asarray(trajectory))
+        for lst, a in zip(taps, motion_resample_indices(traj, (h, w), s)):
+            lst.append(a)
+    taps = [np.ascontiguousarray(np.stack(a)) for a in taps]
+    if shuffle:
+        perm = rng.permutation(s)
+        for j in (0, 1, 2):
+            taps[j] = np.ascontiguousarray(taps[j][..., perm])
+        taps[1] = rng.integers(0, hc, taps[1].shape).astype(np.int32)
+    return images, taps
+
+
+def _band_spans(y0, y1, band):
+    """The span of source rows each band of each frame touches."""
+    s = y0.shape[-1]
+    rows = [np.concatenate([y0.reshape(-1, s)[:, o:o + band],
+                            y1.reshape(-1, s)[:, o:o + band]], axis=1)
+            for o in range(0, s, band)]
+    return np.stack([r.max(1) - r.min(1) + 1 for r in rows])
+
+
+@pytest.mark.parametrize("itemsize", [2, 4])
+def test_k4_plan_at_the_sun_shape(itemsize):
+    """K4 at the SUN path's shape (16 images of the 256 x 342 canvas, 16
+    frames each, 112 x 112 out) takes K1's plan: bands of 16 output rows,
+    7 a frame, within 96 KB of shared memory, and a staging area that holds
+    the whole span of every band of 64 images' crop boxes (crop sides from
+    112 to the image's short side), so no band is staged in pieces."""
+    plan = transform_plan(16, 16, 256, 342, 112, itemsize)
+    assert (plan["band_rows"], plan["bands"], plan["whole_span"]) == (
+        16, 7, True)
+    assert plan["blocks"] == 16 * 16 * 7 and plan["threads"] == 224
+    assert plan["smem_bytes"] == k1_smem_bytes(16, plan["stage_rows"], 112,
+                                               342, itemsize)
+    assert plan["smem_bytes"] <= 96 * 1024 and plan["per_sm"] >= 3
+    _, taps = _sun_images(0, 64, 16)
+    spans = _band_spans(taps[0], taps[1], 16)
+    assert spans.max() <= plan["stage_rows"], (spans.max(), plan)
+
+
+@pytest.mark.parametrize("case", ["sun", "sun_bf16", "odd_s", "overhang",
+                                  "shuffled", "pieces", "pair_off_grid"])
+def test_k4_band_scheme_gives_the_plain_version(case):
+    """K4's bands, staging and 16-byte writes walked in numpy under
+    transform_plan: per-frame taps, one image per sample, the per-channel
+    affine after the lerps, at the SUN canvas, an odd output side (97) on an
+    odd canvas, crop boxes that overhang the image, non-monotone taps,
+    staging areas of 5 and 2 rows (pieces and the pair of rows) and
+    addresses off the 16-byte grid: bit for bit the plain float32
+    transform, every output written once, no unstaged byte read."""
+    from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+        CH_OFFSET,
+        CH_SCALE,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.resample import (
+        channel_affine,
+    )
+
+    kw, s, stage_rows, addr, itemsize = {}, 112, None, {}, 4
+    if case == "sun_bf16":
+        itemsize, addr = 2, {"out_addr": 6}
+    elif case == "odd_s":
+        s, kw = 97, {"canvas": (131, 173), "sizes": [(131, 173), (120, 150)]}
+    elif case == "overhang":
+        kw = {"canvas": (100, 400), "sizes": [(100, 400)],
+              "trajectory": [[0, 5, 112], [0, 200, 112], [0, 300, 112]]}
+    elif case in ("shuffled", "pieces", "pair_off_grid"):
+        kw = {"shuffle": True}
+        stage_rows = {"pieces": 5, "pair_off_grid": 2}.get(case)
+        addr = {"pieces": {"canvas_addr": 3},
+                "pair_off_grid": {"canvas_addr": 9, "out_addr": 8}}.get(
+                    case, {})
+    images, taps = _sun_images(11, 2, 3, s=s, **kw)
+    plan = dict(transform_plan(2, 3, *images.shape[1:3], s, itemsize))
+    if stage_rows is not None:
+        plan["stage_rows"] = stage_rows
+        plan["smem_bytes"] = k1_smem_bytes(plan["band_rows"], stage_rows, s,
+                                           images.shape[2], itemsize)
+    affine = channel_affine(CH_SCALE, CH_OFFSET)
+    got, writes = _walk_bands(images, taps, plan, itemsize=itemsize,
+                              affine=affine, **addr)
+    want = fused_image_motion_transform(
+        *(torch.from_numpy(a) for a in (images, *taps)), CH_SCALE, CH_OFFSET)
+    assert (writes == 1).all()
+    np.testing.assert_array_equal(got, want.numpy())
+    if case == "overhang":  # the clamped extent repeats the last rows
+        assert int(taps[1].max()) == 99
+    if case in ("pieces", "pair_off_grid"):
+        assert _band_spans(taps[0], taps[1], 16).max() > stage_rows
 
 
 @pytest.mark.parametrize("shape,co,kernel,staging", [

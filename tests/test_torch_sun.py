@@ -28,6 +28,7 @@ from zeroshotvideoclassification_tpu_torch.data.synthetic import (
     build_synthetic_datasets,
 )
 from zeroshotvideoclassification_tpu_torch.models import bridge
+from zeroshotvideoclassification_tpu_torch.train import save_checkpoint
 
 from test_torch_train import jax_weights, seeded_moments
 
@@ -182,11 +183,17 @@ def test_evaluate_flag_evaluates_the_held_weights(tmp_path, image_files,
     assert "evaluating fresh init" in capsys.readouterr().out
     assert not [f for f in os.listdir(pexp.savename)
                 if f.startswith("train_samples_")]
-    # a checkpoint to evaluate is there: loading it is not ported yet
+    # with a checkpoint at the run's path, --evaluate evaluates it (strict
+    # on the weights and BN statistics)
     ckpt = os.path.join(os.path.dirname(pexp.savename), "checkpoint.npz")
-    open(ckpt, "wb").close()
-    with pytest.raises(NotImplementedError, match="ROADMAP P6"):
-        Experiment(pexp.config, pexp.datasets, device="cpu")
+    with torch.no_grad():
+        for p in pexp.model.parameters():
+            p.add_(0.01)
+    save_checkpoint(ckpt, pexp.train_step.state, 0, 1.0)
+    loaded = Experiment(pexp.config, pexp.datasets, device="cpu")
+    assert f"LOADED CHECKPOINT: {ckpt}" in capsys.readouterr().out
+    for k, v in pexp.model.state_dict().items():
+        assert torch.equal(loaded.model.state_dict()[k], v), k
 
 
 def test_split_protocol_is_skipped_under_four_classes(tmp_path, image_files):

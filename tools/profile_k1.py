@@ -1,6 +1,7 @@
 #!/usr/bin/env python3
-"""Where K1 (csrc/video_transform.cu) spends its time, on one GPU, found by
-taking parts out, as tools/profile_k3.py does for K3: the source is
+"""Where K1 and K4 (one kernel template, csrc/video_transform.cu) spend
+their time, on one GPU, found by taking parts out, as tools/profile_k3.py
+does for K3: the source is
 compiled several times, each time with parts of the kernel switched off by
 macros that this script writes into a copy of it, and every variant's
 launch alone is timed on the same tensors (a run of 20 launches between two
@@ -19,9 +20,10 @@ CUDA events, median of 5):
 The variants compute wrong results on purpose; only `base` is checked
 against the wrapper's output. What a part costs is base minus the variant
 without it; what it costs alone is its `only_` variant minus `nothing`.
-Inputs: tools/profile_kernels.py's serving batch at bucket 8 and 16-clip
-training batch, bf16 out. Needs nvcc and prints the card's name and power
-limit first.
+Inputs: K1 on tools/profile_kernels.py's serving batch at bucket 8 and
+16-clip training batch, K4 on the SUN path's batch (chip_smoke.
+sun_motion_args: 16 images, 16 frames each), bf16 out. Needs nvcc and
+prints the card's name and power limit first.
 """
 
 from __future__ import annotations
@@ -80,9 +82,17 @@ def main(argv=None):
     if not torch.cuda.is_available():
         print("profile_k1: needs an NVIDIA GPU", file=sys.stderr)
         return 2
+    from chip_smoke import sun_motion_args
     from profile_kernels import RUN, event_ms, k1_batches
     from zeroshotvideoclassification_tpu_torch import _build
+    from zeroshotvideoclassification_tpu_torch.data.stillimages import (
+        CH_OFFSET,
+        CH_SCALE,
+    )
     from zeroshotvideoclassification_tpu_torch.ops import resample_cuda as rc
+    from zeroshotvideoclassification_tpu_torch.ops.resample import (
+        channel_affine,
+    )
 
     smi = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -90,7 +100,7 @@ def main(argv=None):
         check=True, timeout=60).stdout.strip().splitlines()[0].strip()
     print(smi, flush=True)
     record = {"nvidia_smi": smi, "batches": {}}
-    entry = "zsvc_video_transform_bf16"
+    entries = ("zsvc_video_transform_bf16", "zsvc_image_motion_transform_bf16")
     with tempfile.TemporaryDirectory(prefix="profile_k1_") as tmp:
         src = os.path.join(tmp, "video_transform_switched.cu")
         with open(src, "w") as f:
@@ -107,37 +117,49 @@ def main(argv=None):
             err = proc.communicate()[1]
             if proc.returncode != 0:
                 raise RuntimeError(f"nvcc failed for {name}:\n{err[-3000:]}")
-        fns = {}
+        fns = {entry: {} for entry in entries}
         for name in VARIANTS:
-            fn = getattr(ctypes.CDLL(os.path.join(tmp, f"{name}.so")), entry)
-            fn.argtypes = _build.SIGNATURES[entry]
-            fn.restype = ctypes.c_int
-            fns[name] = fn
-        for batch, k1_args in k1_batches(tmp, torch.device("cuda")).items():
-            b, t, hc, wc, _ = k1_args[0].shape
-            s = k1_args[1].shape[1]
+            lib = ctypes.CDLL(os.path.join(tmp, f"{name}.so"))
+            for entry in entries:
+                fn = getattr(lib, entry)
+                fn.argtypes = _build.SIGNATURES[entry]
+                fn.restype = ctypes.c_int
+                fns[entry][name] = fn
+        dev = torch.device("cuda")
+        stream = torch.cuda.current_stream().cuda_stream
+        cases = []  # (batch, entry, operands, affine, the wrapper's output)
+        for batch, k1_args in k1_batches(tmp, dev).items():
+            cases.append((f"K1 {batch}", entries[0], k1_args, (),
+                          rc.fused_video_transform_cuda(
+                              *k1_args, out_dtype=torch.bfloat16)))
+        k4_args = sun_motion_args(dev)
+        scale, offset = channel_affine(CH_SCALE, CH_OFFSET)
+        cases.append(("K4 SUN batch", entries[1], k4_args,
+                      (*map(float, scale), *map(float, offset)),
+                      rc.fused_image_motion_transform_cuda(
+                          *k4_args, CH_SCALE, CH_OFFSET, torch.bfloat16)))
+        for batch, entry, args_, affine, want in cases:
+            b, t, s = want.shape[:3]
+            hc, wc = args_[0].shape[-3:-1]  # canvas or images: [..., H, W, 3]
             plan = rc.transform_plan(b, t, hc, wc, s, 2)
-            want = rc.fused_video_transform_cuda(*k1_args,
-                                                 out_dtype=torch.bfloat16)
             out = torch.empty_like(want)
-            stream = torch.cuda.current_stream().cuda_stream
 
             def call(fn):
-                err = fn(*(a.data_ptr() for a in k1_args), out.data_ptr(),
-                         b, t, hc, wc, s, plan["band_rows"],
+                err = fn(*(a.data_ptr() for a in args_), out.data_ptr(),
+                         *affine, b, t, hc, wc, s, plan["band_rows"],
                          plan["stage_rows"], plan["threads"],
                          plan["smem_bytes"], stream)
-                _build.check(err, "video_transform variant")
+                _build.check(err, f"{entry} variant")
 
-            call(fns["base"])
+            call(fns[entry]["base"])
             torch.cuda.synchronize()
             if not torch.equal(out, want):
                 raise RuntimeError(f"base variant is wrong on {batch}")
             ms = {k: event_ms(lambda f=f: call(f), RUN, 5)
-                  for k, f in fns.items()}
-            record["batches"][batch] = {"shape": list(k1_args[0].shape),
+                  for k, f in fns[entry].items()}
+            record["batches"][batch] = {"shape": list(args_[0].shape),
                                         "plan": plan, "ms": ms}
-            print(f"[K1 parts] {batch}: "
+            print(f"[parts] {batch}: "
                   + "  ".join(f"{k} {v:.4f}" for k, v in ms.items())
                   + f" ms  ({smi})", flush=True)
     if args.json:

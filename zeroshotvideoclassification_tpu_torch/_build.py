@@ -54,8 +54,8 @@ _P, _I, _LL, _F = (ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong,
 SIGNATURES = {
     "zsvc_video_transform_f32": [_P] * 8 + [_I] * 9 + [_P],
     "zsvc_video_transform_bf16": [_P] * 8 + [_I] * 9 + [_P],
-    "zsvc_image_motion_transform_f32": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
-    "zsvc_image_motion_transform_bf16": [_P] * 8 + [_F] * 6 + [_I] * 5 + [_P],
+    "zsvc_image_motion_transform_f32": [_P] * 8 + [_F] * 6 + [_I] * 9 + [_P],
+    "zsvc_image_motion_transform_bf16": [_P] * 8 + [_F] * 6 + [_I] * 9 + [_P],
     "zsvc_temporal_conv3_f32": [_P] * 3 + [_LL] + [_I] * 6 + [_P],
     "zsvc_temporal_conv3_bf16": [_P] * 4 + [_I] * 10 + [_P],
     "zsvc_bn_apply_relu_f32": [_P] * 6 + [_F, _P, _LL] + [_I] * 8 + [_P],

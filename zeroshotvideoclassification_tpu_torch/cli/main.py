@@ -16,24 +16,34 @@ sun2both: train on SUN, test on videos) trains with the halved batch.
       --dataset synthetic --class_total 8 --train_samples 64 \
       --n_epochs 2 --bs 8 --network r2plus1d_18 --device cuda
 
+Checkpoints are the JAX package's npz files (train/checkpoint.py), so
+either package resumes, warm-starts from or evaluates the other's. An
+epoch that improves the best mean accuracy writes <run>/checkpoint.npz;
+--checkpoint_every N writes <run>/last.npz every N epochs; both go through
+one writer thread (train/async_ckpt.py), drained before run() returns.
+--resume PATH restores the full state (parameters, BN statistics, Adam's
+moments and counters, the step count) and goes on at the epoch after the
+saved one in the checkpoint's directory; --resume auto takes the newest
+checkpoint of this run's name, or starts fresh where there is none.
+--weights PATH warm-starts (every tensor whose key and shape match, from
+an npz or a torchvision / reference .pth); without --nopretrained a
+<pretrained_dir>/<network>.{npz,pth,pth.tar} is loaded the same way.
+--evaluate evaluates --weights or the run's checkpoint.npz (strict on the
+weights and BN statistics) once. --profile_dir traces the first epoch with
+torch.profiler.
+
 The flags are the JAX trainer's (config.build_arg_parser, the same Config)
 plus --device, which defaults to cuda; asking for cuda without a GPU raises.
---evaluate runs the evaluation once on the weights the experiment holds
-(the seeded init: loading a checkpoint to evaluate waits for ROADMAP P6 and
-raises). What the port does not do yet raises NotImplementedError, naming
-its ROADMAP item, when it is asked for: --resume / --weights / a pretrained
-asset / --checkpoint_every / --profile_dir (P6), --tp > 1 (P7),
---head linear / --clip_pool embedding / --fixconvs / --remat / c3d (P8),
-and --steps_per_call > 1 / --save_samples / --debug_nans (P11). The
-best-accuracy checkpoint (P6) is not written; every epoch that improves
-says so.
+What the port does not do yet raises NotImplementedError, naming its
+ROADMAP item, before any dataset is built: --tp > 1 (P7), --network
+resnet18 / c3d, --head linear, --clip_pool embedding, --fixconvs, --remat
+(P8), and --steps_per_call > 1 / --save_samples / --debug_nans (P11).
 """
 
 from __future__ import annotations
 
 import argparse
 import os
-import sys
 import time
 from typing import Dict, List
 
@@ -65,10 +75,14 @@ from zeroshotvideoclassification_tpu_torch.models import get_network
 from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
 from zeroshotvideoclassification_tpu_torch.train import (
     eval_step,
+    host_state,
+    load_checkpoint,
     make_optimizer,
     make_train_step,
     multistep_lr,
+    read_meta,
     set_lr,
+    warm_start,
 )
 from zeroshotvideoclassification_tpu_torch.utils.logging import (
     MetricsLogger,
@@ -81,12 +95,10 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError for every request the port cannot honour
     yet, naming the ROADMAP item that will."""
     asked = [
-        (config.resume, "--resume", "P6"),
-        (config.weights and config.weights != "none",
-         "--weights (warm start)", "P6"),
-        (config.checkpoint_every, "--checkpoint_every", "P6"),
         (config.tp > 1, "--tp > 1", "P7"),
         ("c3d" in config.network, f"--network {config.network}", "P8"),
+        # the JAX package routes it to r3d_18 + the linear head
+        (config.network == "resnet18", "--network resnet18", "P8"),
         (config.head != "mlp", f"--head {config.head}", "P8"),
         (str(config.clip_pool) != "feature",
          f"--clip_pool {config.clip_pool}", "P8"),
@@ -95,21 +107,34 @@ def check_ported(config: Config) -> None:
         (config.steps_per_call > 1, "--steps_per_call > 1", "P11"),
         (config.save_samples, "--save_samples", "P11"),
         (config.debug_nans, "--debug_nans", "P11"),
-        (config.profile_dir, "--profile_dir", "P6"),
     ]
     for wanted, what, item in asked:
         if wanted:
             raise NotImplementedError(
                 f"{what} is not ported yet (ROADMAP {item})")
-    if not config.nopretrained:
-        for ext in ("npz", "pth", "pth.tar"):
-            path = os.path.join(config.pretrained_dir,
-                                f"{config.network}.{ext}")
-            if os.path.exists(path):
-                raise NotImplementedError(
-                    f"loading the pretrained asset {path} is not ported yet "
-                    f"(ROADMAP P6); pass --nopretrained to train from a "
-                    f"random init")
+
+
+def _find_latest_checkpoint(base: str):
+    """Newest full-state checkpoint for --resume auto: last.npz (periodic)
+    or checkpoint.npz (best-by-accuracy) under the base savename or any of
+    its _N dedup dirs; None if the run never checkpointed. Ranked by the
+    checkpoint's STORED epoch (read_meta), not the file's mtime; last.npz
+    wins epoch ties (it is written after checkpoint.npz in an epoch)."""
+    import glob
+    import zipfile
+
+    candidates = []
+    for d in [base] + sorted(glob.glob(base + "_*")):
+        for pref, name in enumerate(("checkpoint.npz", "last.npz")):
+            p = os.path.join(d, name)
+            if os.path.exists(p):
+                try:
+                    epoch = int(read_meta(p).get("epoch", -1))
+                except (OSError, ValueError, KeyError, EOFError,
+                        zipfile.BadZipFile):
+                    continue  # mid-write / corrupt file: not a candidate
+                candidates.append((epoch, pref, p))
+    return max(candidates)[2] if candidates else None
 
 
 def eval_batch_size(global_bs: int, n_clips: int, n_data: int,
@@ -171,22 +196,46 @@ class Experiment:
         self.train_step = make_train_step(self.model, self.optimizer,
                                           compute_dtype=self.dtype)
         self.start_epoch = 0
-        if not config.nopretrained:
-            print(f"WARNING: no pretrained asset for {config.network!r} "
-                  f"under {config.pretrained_dir!r} — training from random "
-                  f"init (pass --nopretrained to silence this)")
+        self.best_acc = 0.0
         base = config.savename(1)
+        if config.resume == "auto":
+            # preemption recovery: the newest full-state checkpoint under
+            # this run's name (and its _N dirs); a fresh run if there is none
+            found = _find_latest_checkpoint(base)
+            config = config.replace(resume=found)
+            self.config = config
+            print(f"RESUME auto: {found or 'no checkpoint found, fresh run'}")
+        if config.resume:
+            meta = load_checkpoint(config.resume, self.model, self.optimizer)
+            self.train_step.state.step = meta["step"]
+            self.start_epoch = int(meta.get("epoch", -1)) + 1
+            self.best_acc = float(meta.get("accuracy", 0.0))
+            print(f"RESUMED: {config.resume} at epoch {self.start_epoch}")
         if config.evaluate:
-            # --evaluate points at the run's best checkpoint and logs to an
-            # evaluation/ subdir (reference/main.py:102-104)
-            ckpt = os.path.join(base, "checkpoint.npz")
+            # --evaluate points at --weights or the run's best checkpoint and
+            # logs to an evaluation/ subdir (reference/main.py:102-104)
+            ckpt = (config.weights if config.weights
+                    and config.weights != "none"
+                    else os.path.join(base, "checkpoint.npz"))
             if os.path.exists(ckpt):
-                raise NotImplementedError(
-                    f"loading the checkpoint {ckpt} to evaluate it is not "
-                    f"ported yet (ROADMAP P6)")
-            print(f"WARNING: no checkpoint at {ckpt}; evaluating fresh init")
+                # the weights and BN statistics only, strictly
+                meta = load_checkpoint(
+                    ckpt, self.model, strict_sections=("params",
+                                                       "model_state"))
+                print(f"LOADED CHECKPOINT: {ckpt} (epoch "
+                      f"{meta.get('epoch')}, acc {meta.get('accuracy')})")
+            else:
+                print(f"WARNING: no checkpoint at {ckpt}; evaluating fresh "
+                      f"init")
             self.savename = os.path.join(base, "evaluation")
+        elif config.resume:
+            self.savename = os.path.dirname(config.resume) or base
         else:
+            if config.weights and config.weights != "none":
+                n = warm_start(config.weights, self.model)
+                print(f"LOADED MODEL: {config.weights} ({n} tensors)")
+            elif not config.nopretrained:
+                self._warm_start_pretrained()
             # de-dup the experiment dir with a _N suffix
             # (reference/main.py:94-97)
             self.savename, count = base, 1
@@ -195,7 +244,34 @@ class Experiment:
                 count += 1
         os.makedirs(self.savename, exist_ok=True)
         self.log = MetricsLogger(self.savename)
-        self.best_acc = 0.0
+        self._ckpt = None  # the writer thread, started at the first write
+
+    def _ckpt_writer(self):
+        """This run's AsyncCheckpointer: writes on one ordered thread, so
+        that the next epoch's steps overlap the disk write."""
+        if self._ckpt is None:
+            from zeroshotvideoclassification_tpu_torch.train.async_ckpt \
+                import AsyncCheckpointer
+
+            self._ckpt = AsyncCheckpointer()
+        return self._ckpt
+
+    # -------------------------------------------------------- pretrained ----
+    def _warm_start_pretrained(self) -> None:
+        """Without --nopretrained, load <pretrained_dir>/<network>.npz,
+        .pth or .pth.tar (the first that exists) as a warm start: the
+        counterpart of the reference's pretrained=True torchvision
+        constructors (reference/resnet.py:284-362)."""
+        cfg = self.config
+        for ext in ("npz", "pth", "pth.tar"):
+            path = os.path.join(cfg.pretrained_dir, f"{cfg.network}.{ext}")
+            if os.path.exists(path):
+                n = warm_start(path, self.model)
+                print(f"PRETRAINED: loaded {n} tensors from {path}")
+                return
+        print(f"WARNING: no pretrained asset for {cfg.network!r} under "
+              f"{cfg.pretrained_dir!r} — training from random init (pass "
+              f"--nopretrained to silence this)")
 
     # ------------------------------------------------------------- train ----
     def train_one_epoch(self, epoch: int) -> Dict[str, float]:
@@ -351,7 +427,14 @@ class Experiment:
                   f"OVERLAP {cfg.class_overlap} SAMPLES {trainsamples}")
             t0 = time.time()
             if not cfg.evaluate and self.datasets["training"]:
-                summary.update(self.train_one_epoch(epoch))
+                if cfg.profile_dir and epoch == self.start_epoch:
+                    from zeroshotvideoclassification_tpu_torch.utils.profiler \
+                        import device_trace
+
+                    with device_trace(cfg.profile_dir):
+                        summary.update(self.train_one_epoch(epoch))
+                else:
+                    summary.update(self.train_one_epoch(epoch))
             accuracies = []
             for table in self.datasets["testing"]:
                 r = self.evaluate(table, epoch)
@@ -359,17 +442,37 @@ class Experiment:
                 summary[f"{table.name}_accuracy"] = r["accuracy"]
             mean_acc = float(np.mean(accuracies)) if accuracies else 0.0
             improved = mean_acc > self.best_acc
+            # --evaluate is read-only: it writes no checkpoint
+            save_best = improved and not cfg.evaluate
+            save_last = bool(cfg.checkpoint_every and not cfg.evaluate
+                             and (epoch + 1) % cfg.checkpoint_every == 0)
+            if save_best or save_last:
+                # the state comes to host numpy here, on this thread; the
+                # writer thread writes it while the next epoch runs
+                state = host_state(self.train_step.state)
+            if save_best:
+                self._ckpt_writer().submit(
+                    os.path.join(self.savename, "checkpoint.npz"), state,
+                    epoch, mean_acc, cfg.to_json())
             if improved:
                 self.best_acc = mean_acc
-                if not cfg.evaluate:  # --evaluate is read-only
-                    print(f"NOT SAVED: the best-accuracy checkpoint "
-                          f"(mean accuracy {mean_acc:.1f}) is not ported "
-                          f"yet (ROADMAP P6)", file=sys.stderr)
+            if save_last:
+                # periodic full state for preemption recovery (--resume
+                # auto); the reference's best-only policy loses everything
+                # between accuracy improvements
+                self._ckpt_writer().submit(
+                    os.path.join(self.savename, "last.npz"), state, epoch,
+                    self.best_acc, cfg.to_json())
             print("----- Epoch %d done in %.2f min. Best accuracy %.1f"
                   % (epoch, (time.time() - t0) / 60, self.best_acc))
             if cfg.evaluate:
                 break
         summary["best_accuracy"] = self.best_acc
+        if self._ckpt is not None:
+            # the files are complete when run() returns: a later job (or
+            # the caller) reads them next
+            self._ckpt.close()
+            self._ckpt = None
         self.log.close()
         return summary
 

@@ -1,23 +1,43 @@
-// K1: the fused video input transform on Hopper (sm_90a).
+// K1 and K4: the fused input transforms on Hopper (sm_90a), one kernel
+// template for both.
 //
-// Replaces zeroshotvideoclassification_tpu/ops/resample_pallas.py:
+// K1 replaces zeroshotvideoclassification_tpu/ops/resample_pallas.py:
 // fused_video_transform_pallas, which ran the separable bilinear resample as
 // two interpolation-matrix products per (sample, frame, channel) plane on the
 // TPU's matrix unit. With two taps per axis a GPU reads the four source
 // pixels directly:
 //
-//   out[b, t, oy, ox, c] = (((lerp_x(lerp_y(canvas)) / 255) - 1) / 2
+//   out[b, t, oy, ox, c] = (((lerp_x(lerp_y(canvas[b, t])) / 255) - 1) / 2
 //
 // with the taps y0/y1/wy (per output row) and x0/x1/wx (per output column)
-// of sample b, into which resize, crop and flip were folded on the host
-// (data/transform_params.py:resample_indices).
+// of sample b ([B, S]), into which resize, crop and flip were folded on the
+// host (data/transform_params.py:resample_indices).
+//
+// K4 replaces resample_pallas.py:fused_image_motion_transform_pallas, the
+// SUN camera-motion inflation, which the JAX package runs through K1's own
+// kernel body (_kernel(..., affine=)). It differs from K1 in three ways:
+//   * its taps are per FRAME, [B, T, S]: frame (b, t) reads row
+//     (b * T + t) * S of them, where K1's frame reads row b * S;
+//   * its source is ONE image per sample, [B, Hc, Wc, 3]: every frame of
+//     sample b reads image b (263 KB at 256x342, which stays in L2 while
+//     the sample's frames read it);
+//   * its epilogue is the per-channel affine v * scale[c] + offset[c], the
+//     six constants a kernel argument:
+//
+//   out[b, t, oy, ox, c] = lerp_x(lerp_y(image[b])) * scale[c] + offset[c]
+//
+// The kernel template takes the difference as a policy (VideoFrames or
+// ImageMotion): which source frame and which row of taps a frame reads, and
+// the epilogue.
 //
 // Bound: bytes. At the serving shape (bucket 8, 64 frames, a 226x226 window)
-// it reads about 78 MB of uint8 canvas and writes 38.5 MB of bf16, against a
-// few flops per byte. A thread that gathers its own pixel from global
-// memory makes twelve 1-byte loads and stores 6 bytes: small scattered
-// requests. Design: one block per band of `band_rows` output rows of one
-// frame (ops/resample_cuda.transform_plan sizes them), which
+// K1 reads about 78 MB of uint8 canvas and writes 38.5 MB of bf16; at the
+// SUN training shape (16 images of 256x342, 16 frames, 112x112) K4 reads
+// 4.2 MB of images and writes 19.3 MB of bf16; both against a few flops per
+// byte. A thread that gathers its own pixel from global memory makes twelve
+// 1-byte loads and stores 6 bytes: small scattered requests. Design: one
+// block per band of `band_rows` output rows of one frame
+// (ops/resample_cuda.transform_plan sizes them, for both kernels), which
 //   1. finds the span of source rows the band touches, from the least to
 //      the greatest row tap (computed here, not assumed monotone): each warp
 //      reads the band's row taps and reduces them with redux.sync;
@@ -38,15 +58,18 @@
 // room for (taps that jump about), the band is done in pieces: the longest
 // runs of its output rows whose span fits, each staged and computed in turn;
 // an output row whose own two taps lie further apart than that stages just
-// those two source rows. Any canvas size is accepted.
+// those two source rows. Any canvas or image size is accepted. K4 stages
+// whole image rows, as K1 does, though a crop reads at most 256 of a row's
+// 342 pixels.
 //
-// Arithmetic: the order of ops/resample.py:38-50 (row lerp at both source
-// columns, then the column lerp, then /255, -1, /2), every step rounded on
-// its own (the _rn intrinsics keep nvcc from contracting into FMAs), so the
-// float32 output equals the plain PyTorch version's. Three steps take an
-// exact shortcut: a byte becomes a float by an add (byte_value), /255 is a
-// product and a fused correction (div255), and /2 is a product by 0.5 (the
-// same real number, so the same rounding).
+// Arithmetic: the order of ops/resample.py (row lerp at both source
+// columns, then the column lerp, then K1's /255, -1, /2 or K4's * scale,
+// + offset), every step rounded on its own (the _rn intrinsics keep nvcc
+// from contracting into FMAs), so the float32 output equals the plain
+// PyTorch version's. Three of K1's steps take an exact shortcut: a byte
+// becomes a float by an add (byte_value), /255 is a product and a fused
+// correction (div255), and /2 is a product by 0.5 (the same real number,
+// so the same rounding). K4's epilogue takes none.
 
 #include <cstdint>
 #include <cuda_bf16.h>
@@ -100,6 +123,37 @@ __device__ __forceinline__ float div255(float v) {
   return __fdiv_rn(v, 255.0f);
 }
 
+// K1's policy: taps [B, S] of sample frame / T, canvas frame `frame` of
+// [B, T, Hc, Wc, 3], and the normalisation ((v / 255) - 1) / 2.
+struct VideoFrames {
+  __device__ __forceinline__ int source(int frame, int) const {
+    return frame;
+  }
+  __device__ __forceinline__ int taps(int frame, int T) const {
+    return frame / T;
+  }
+  template <int c>
+  __device__ __forceinline__ float finish(float v) const {
+    // x / 2 and x * 0.5 are one real number, so one rounding
+    return __fmul_rn(__fsub_rn(div255(v), 1.0f), 0.5f);
+  }
+};
+
+// K4's policy: taps [B, T, S] of the frame itself, image frame / T of
+// [B, Hc, Wc, 3], and the per-channel affine v * scale[c] + offset[c].
+struct ImageMotion {
+  float scale[3];
+  float offset[3];
+  __device__ __forceinline__ int source(int frame, int T) const {
+    return frame / T;
+  }
+  __device__ __forceinline__ int taps(int frame, int) const { return frame; }
+  template <int c>
+  __device__ __forceinline__ float finish(float v) const {
+    return __fadd_rn(__fmul_rn(v, scale[c]), offset[c]);
+  }
+};
+
 __host__ __device__ __forceinline__ size_t align16(size_t v) {
   return (v + 15) & ~static_cast<size_t>(15);
 }
@@ -122,11 +176,15 @@ struct Layout {
   }
 };
 
-struct Band {  // a block's work: `nrows` output rows of one frame
-  int frame, b, oy0, nrows;
-  __device__ Band(int band_rows, int S, int T) {
+// A block's work: `nrows` output rows of one frame, which reads source
+// frame `src` and the row `tap` of the taps (Mode says which).
+struct Band {
+  int frame, src, tap, oy0, nrows;
+  template <class Mode>
+  __device__ Band(Mode mode, int band_rows, int S, int T) {
     frame = blockIdx.y;
-    b = frame / T;
+    src = mode.source(frame, T);
+    tap = mode.taps(frame, T);
     oy0 = blockIdx.x * band_rows;
     nrows = min(band_rows, S - oy0);
   }
@@ -149,7 +207,7 @@ __device__ __forceinline__ void load_taps(
     const Taps& tp, const Band& w, const int32_t* y0, const int32_t* y1,
     const float* wy, const int32_t* x0, const int32_t* x1, const float* wx,
     int Hc, int Wc, int S) {
-  const int o = w.b * S;
+  const int o = w.tap * S;
   for (int i = threadIdx.x; i < S; i += blockDim.x) {
     tp.xa[i] = clamp_index(x0[o + i], Wc - 1) * 3;
     tp.xb[i] = clamp_index(x1[o + i], Wc - 1) * 3;
@@ -248,9 +306,11 @@ __device__ __forceinline__ void write_tile(const unsigned char* t0, OutT* go,
 }
 
 // Channel c of one output pixel from its four source pixels (a0, b0 at the
-// first column tap of the rows ya, yb; a1, b1 at the second) and weights.
-template <int c, typename OutT>
-__device__ __forceinline__ void put_channel(OutT* o, uint32_t a0, uint32_t b0,
+// first column tap of the rows ya, yb; a1, b1 at the second) and weights,
+// finished by the mode's epilogue.
+template <int c, typename OutT, class Mode>
+__device__ __forceinline__ void put_channel(OutT* o, Mode mode,
+                                            uint32_t a0, uint32_t b0,
                                             uint32_t a1, uint32_t b1,
                                             float gy, float wy, float gx,
                                             float wx) {
@@ -259,8 +319,7 @@ __device__ __forceinline__ void put_channel(OutT* o, uint32_t a0, uint32_t b0,
   const float cb = __fadd_rn(__fmul_rn(byte_value<c>(a1), gy),
                              __fmul_rn(byte_value<c>(b1), wy));
   const float v = __fadd_rn(__fmul_rn(ca, gx), __fmul_rn(cb, wx));
-  // x / 2 and x * 0.5 are one real number, so one rounding
-  store(o + c, __fmul_rn(__fsub_rn(div255(v), 1.0f), 0.5f));
+  store(o + c, mode.template finish<c>(v));
 }
 
 // The pixels of output rows [i0, i1) into the tile. Source row r of the
@@ -269,8 +328,9 @@ __device__ __forceinline__ void put_channel(OutT* o, uint32_t a0, uint32_t b0,
 // (its taps in registers) and walks the rows `groups` apart: per pixel
 // three row-tap loads (broadcasts within a warp) and four source pixels of
 // two words each.
-template <typename OutT>
-__device__ __forceinline__ void compute_rows(OutT* tile, const Taps& tp,
+template <typename OutT, class Mode>
+__device__ __forceinline__ void compute_rows(OutT* tile, Mode mode,
+                                             const Taps& tp,
                                              const uint32_t* words, int S,
                                              int i0, int i1, int a, int b,
                                              bool pair, int lo, int rowb) {
@@ -292,36 +352,37 @@ __device__ __forceinline__ void compute_rows(OutT* tile, const Taps& tp,
       const uint32_t pa1 = pixel_bytes(words, ra + cb0);
       const uint32_t pb1 = pixel_bytes(words, rb + cb0);
       OutT* o = tile + (static_cast<size_t>(i) * S + ox) * 3;
-      put_channel<0>(o, pa0, pb0, pa1, pb1, gy, wyv, gx, wxv);
-      put_channel<1>(o, pa0, pb0, pa1, pb1, gy, wyv, gx, wxv);
-      put_channel<2>(o, pa0, pb0, pa1, pb1, gy, wyv, gx, wxv);
+      put_channel<0>(o, mode, pa0, pb0, pa1, pb1, gy, wyv, gx, wxv);
+      put_channel<1>(o, mode, pa0, pb0, pa1, pb1, gy, wyv, gx, wxv);
+      put_channel<2>(o, mode, pa0, pb0, pa1, pb1, gy, wyv, gx, wxv);
     }
   }
 }
 
-template <typename OutT>
+template <typename OutT, class Mode>
 __global__ void __launch_bounds__(kMaxThreads) video_transform_kernel(
-    const uint8_t* __restrict__ canvas,  // [B, T, Hc, Wc, 3]
+    const uint8_t* __restrict__ canvas,  // K1 [B,T,Hc,Wc,3]; K4 [B,Hc,Wc,3]
     const int32_t* __restrict__ y0, const int32_t* __restrict__ y1,
-    const float* __restrict__ wy,  // [B, S]
+    const float* __restrict__ wy,  // K1 [B, S]; K4 [B, T, S]
     const int32_t* __restrict__ x0, const int32_t* __restrict__ x1,
-    const float* __restrict__ wx,  // [B, S]
+    const float* __restrict__ wx,  // K1 [B, S]; K4 [B, T, S]
     OutT* __restrict__ out,        // [B, T, S, S, 3]
-    int T, int Hc, int Wc, int S, int band_rows, int stage_rows) {
+    Mode mode, int T, int Hc, int Wc, int S, int band_rows,
+    int stage_rows) {
   extern __shared__ __align__(16) unsigned char smem[];
   const Layout L(band_rows, stage_rows, S, Wc, sizeof(OutT));
   const int rowb = Wc * 3;
   const uint32_t* words = reinterpret_cast<const uint32_t*>(smem);
   unsigned char* stage = smem + L.stage;
-  const Band w(band_rows, S, T);
+  const Band w(mode, band_rows, S, T);
   const Taps tp(smem + L.taps, S, band_rows);
-  const uint8_t* f = canvas + w.frame * static_cast<size_t>(Hc) * rowb;
+  const uint8_t* f = canvas + w.src * static_cast<size_t>(Hc) * rowb;
 
   // the band's span of source rows, in every warp (blockDim is a multiple
   // of 32): staged at once where it fits, its taps loaded meanwhile
   int lo = Hc, hi = -1;
   for (int i = threadIdx.x & 31; i < w.nrows; i += 32) {
-    const int o = w.b * S + w.oy0 + i;
+    const int o = w.tap * S + w.oy0 + i;
     const int ya = clamp_index(y0[o], Hc - 1);
     const int yb = clamp_index(y1[o], Hc - 1);
     lo = min(lo, min(ya, yb));
@@ -346,8 +407,8 @@ __global__ void __launch_bounds__(kMaxThreads) video_transform_kernel(
            static_cast<int>(reinterpret_cast<uintptr_t>(src) & 15);
   };
   if (whole) {
-    compute_rows(tile, tp, words, S, 0, w.nrows, at(run, 0), at(run, 0),
-                 false, lo, rowb);
+    compute_rows(tile, mode, tp, words, S, 0, w.nrows, at(run, 0),
+                 at(run, 0), false, lo, rowb);
   } else {
     for (int i0 = 0; i0 < w.nrows;) {
       const Piece p = plan_piece(tp, i0, w.nrows, stage_rows);
@@ -366,8 +427,8 @@ __global__ void __launch_bounds__(kMaxThreads) video_transform_kernel(
       }
       cp_async_wait_all();
       __syncthreads();
-      compute_rows(tile, tp, words, S, i0, p.i1, at(ra, 0), at(rb, b_at),
-                   p.pair, p.lo, rowb);
+      compute_rows(tile, mode, tp, words, S, i0, p.i1, at(ra, 0),
+                   at(rb, b_at), p.pair, p.lo, rowb);
       i0 = p.i1;
     }
   }
@@ -375,11 +436,12 @@ __global__ void __launch_bounds__(kMaxThreads) video_transform_kernel(
   write_tile(smem + L.tile, go, static_cast<size_t>(w.nrows) * S * 3);
 }
 
-template <typename OutT>
+template <typename OutT, class Mode>
 int launch(const void* canvas, const void* y0, const void* y1, const void* wy,
-           const void* x0, const void* x1, const void* wx, void* out, int B,
-           int T, int Hc, int Wc, int S, int band_rows, int stage_rows,
-           int threads, int smem, void* stream) {
+           const void* x0, const void* x1, const void* wx, void* out,
+           Mode mode, int B, int T, int Hc, int Wc, int S,
+           int band_rows, int stage_rows, int threads, int smem,
+           void* stream) {
   // refuse a plan that is not this source's (ops/resample_cuda.
   // transform_plan): the layout's size must be the plan's, within the card
   const Layout L(band_rows, stage_rows, S, Wc, sizeof(OutT));
@@ -390,7 +452,7 @@ int launch(const void* canvas, const void* y0, const void* y1, const void* wy,
       static_cast<size_t>(smem) != L.total || smem > kMaxSmem ||
       reinterpret_cast<uintptr_t>(out) % sizeof(OutT) != 0)
     return static_cast<int>(cudaErrorInvalidValue);
-  auto kernel = video_transform_kernel<OutT>;
+  auto kernel = video_transform_kernel<OutT, Mode>;
   if (smem > 48 * 1024) {  // past the default allowance (per device)
     const cudaError_t err = cudaFuncSetAttribute(
         kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
@@ -401,8 +463,8 @@ int launch(const void* canvas, const void* y0, const void* y1, const void* wy,
       static_cast<const uint8_t*>(canvas), static_cast<const int32_t*>(y0),
       static_cast<const int32_t*>(y1), static_cast<const float*>(wy),
       static_cast<const int32_t*>(x0), static_cast<const int32_t*>(x1),
-      static_cast<const float*>(wx), static_cast<OutT*>(out), T, Hc, Wc, S,
-      band_rows, stage_rows);
+      static_cast<const float*>(wx), static_cast<OutT*>(out), mode, T, Hc,
+      Wc, S, band_rows, stage_rows);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -421,8 +483,9 @@ extern "C" int zsvc_video_transform_f32(const void* canvas, const void* y0,
                                         int band_rows, int stage_rows,
                                         int threads, int smem,
                                         void* stream) {
-  return launch<float>(canvas, y0, y1, wy, x0, x1, wx, out, B, T, Hc, Wc, S,
-                       band_rows, stage_rows, threads, smem, stream);
+  return launch<float>(canvas, y0, y1, wy, x0, x1, wx, out, VideoFrames{}, B,
+                       T, Hc, Wc, S, band_rows, stage_rows, threads, smem,
+                       stream);
 }
 
 extern "C" int zsvc_video_transform_bf16(const void* canvas, const void* y0,
@@ -433,7 +496,33 @@ extern "C" int zsvc_video_transform_bf16(const void* canvas, const void* y0,
                                          int band_rows, int stage_rows,
                                          int threads, int smem,
                                          void* stream) {
-  return launch<__nv_bfloat16>(canvas, y0, y1, wy, x0, x1, wx, out, B, T, Hc,
-                               Wc, S, band_rows, stage_rows, threads, smem,
-                               stream);
+  return launch<__nv_bfloat16>(canvas, y0, y1, wy, x0, x1, wx, out,
+                               VideoFrames{}, B, T, Hc, Wc, S, band_rows,
+                               stage_rows, threads, smem, stream);
+}
+
+// K4, the same contract: images [B, Hc, Wc, 3], taps [B, T, S]; s0..s2 and
+// o0..o2 are the per-channel scale and offset; the plan is transform_plan's
+// for (B, T, Hc, Wc, S).
+extern "C" int zsvc_image_motion_transform_f32(
+    const void* images, const void* y0, const void* y1, const void* wy,
+    const void* x0, const void* x1, const void* wx, void* out, float s0,
+    float s1, float s2, float o0, float o1, float o2, int B, int T, int Hc,
+    int Wc, int S, int band_rows, int stage_rows, int threads, int smem,
+    void* stream) {
+  const ImageMotion mode = {{s0, s1, s2}, {o0, o1, o2}};
+  return launch<float>(images, y0, y1, wy, x0, x1, wx, out, mode, B, T, Hc,
+                       Wc, S, band_rows, stage_rows, threads, smem, stream);
+}
+
+extern "C" int zsvc_image_motion_transform_bf16(
+    const void* images, const void* y0, const void* y1, const void* wy,
+    const void* x0, const void* x1, const void* wx, void* out, float s0,
+    float s1, float s2, float o0, float o1, float o2, int B, int T, int Hc,
+    int Wc, int S, int band_rows, int stage_rows, int threads, int smem,
+    void* stream) {
+  const ImageMotion mode = {{s0, s1, s2}, {o0, o1, o2}};
+  return launch<__nv_bfloat16>(images, y0, y1, wy, x0, x1, wx, out, mode, B,
+                               T, Hc, Wc, S, band_rows, stage_rows, threads,
+                               smem, stream);
 }

@@ -201,10 +201,13 @@ def adam_from_jax(model, optimizer, mu, nu, count: int) -> None:
 
 def adam_to_jax(model, optimizer):
     """-> (mu, nu, count): `optimizer`'s moments as trees in the JAX
-    package's layouts, and its step count."""
+    package's layouts (zeros for a parameter that has not stepped yet, as
+    optax.adam's init), and its step count."""
     named = dict(model.named_parameters())
-    mu, _ = to_jax({k: optimizer.state[p]["exp_avg"]
-                    for k, p in named.items()})
-    nu, _ = to_jax({k: optimizer.state[p]["exp_avg_sq"]
-                    for k, p in named.items()})
-    return mu, nu, int(optimizer.count)
+
+    def moments(slot):
+        return to_jax({k: (optimizer.state[p][slot] if p in optimizer.state
+                           else torch.zeros_like(p))
+                       for k, p in named.items()})[0]
+
+    return moments("exp_avg"), moments("exp_avg_sq"), int(optimizer.count)

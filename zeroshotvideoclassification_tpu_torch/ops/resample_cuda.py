@@ -1,23 +1,27 @@
 """K1 and K4: the fused input transforms as hand-written CUDA kernels.
 
-fused_video_transform_cuda launches csrc/video_transform.cu (which replaces
-the TPU kernel zeroshotvideoclassification_tpu/ops/resample_pallas.py:
-fused_video_transform_pallas) on CUDA tensors and counts its launches in
-`fused_video_transform_cuda.launches`: a block per band of output rows of
-one frame stages the band's source rows in shared memory and writes the
-band with 16-byte stores. transform_plan sizes the bands, the shared
-memory and the grid (plain Python, tested on the CPU); transform_prepare
-splits a call into its allocation and its launch, for timing the launch
-alone.
-video_transform is the public op: a CPU canvas goes to the plain version
+Both launch one kernel template of csrc/video_transform.cu: a block per
+band of output rows of one frame stages the band's source rows in shared
+memory and writes the band with 16-byte stores. transform_plan sizes the
+bands, the shared memory and the grid for both (plain Python, tested on
+the CPU).
+
+fused_video_transform_cuda (K1; replaces the TPU kernel
+zeroshotvideoclassification_tpu/ops/resample_pallas.py:
+fused_video_transform_pallas) counts its launches in
+`fused_video_transform_cuda.launches`; transform_prepare splits a call into
+its allocation and its launch, for timing the launch alone. video_transform
+is the public op: a CPU canvas goes to the plain version
 (ops/resample.py), a CUDA canvas to the kernel.
 
-fused_image_motion_transform_cuda launches csrc/image_motion_transform.cu
-(which replaces resample_pallas.py:fused_image_motion_transform_pallas, the
-SUN camera-motion inflation with 2-tap bilinear crops) and counts its
-launches in `fused_image_motion_transform_cuda.launches`;
-image_motion_transform is its public op, with the same rule: the plain
-version for CPU images, the kernel for CUDA images, nothing in between.
+fused_image_motion_transform_cuda (K4; replaces
+resample_pallas.py:fused_image_motion_transform_pallas, the SUN
+camera-motion inflation with 2-tap bilinear crops: per-frame taps, one image
+per sample, a per-channel affine) counts its launches in
+`fused_image_motion_transform_cuda.launches`; image_motion_prepare splits
+it as transform_prepare does; image_motion_transform is its public op, with
+the same rule: the plain version for CPU images, the kernel for CUDA
+images, nothing in between.
 """
 
 from __future__ import annotations
@@ -100,8 +104,11 @@ def k1_plan(b: int, t: int, hc: int, wc: int, s: int, out_itemsize: int,
 @functools.lru_cache(maxsize=None)
 def transform_plan(b: int, t: int, hc: int, wc: int, s: int,
                    out_itemsize: int):
-    """How K1 cuts a [b, t, hc, wc, 3] canvas into [b, t, s, s, 3] outputs
-    (k1_plan's dict; cached, so treat it as read-only).
+    """How K1 cuts a [b, t, hc, wc, 3] canvas, and K4 b images [b, hc, wc,
+    3] of t frames each, into [b, t, s, s, 3] outputs (k1_plan's dict;
+    cached, so treat it as read-only): the two kernels share one layout of
+    shared memory, and a frame stages from its own canvas frame (K1) or
+    its sample's image (K4) alike.
 
     One block per band of output rows of one frame, b * t frames (at most
     65535). A band stages its source rows once; taps spread further than
@@ -186,12 +193,13 @@ def video_transform(canvas, y0, y1, wy, x0, x1, wx, out_dtype=torch.float32):
     raise ValueError(f"no transform for device {canvas.device}")
 
 
-def fused_image_motion_transform_cuda(images, y0, y1, wy, x0, x1, wx,
-                                      ch_scale, ch_offset,
-                                      out_dtype=torch.float32):
-    """Same contract as ops.resample.fused_image_motion_transform, on
-    contiguous CUDA tensors only; raises for anything else. ch_scale and
-    ch_offset travel as kernel arguments: hand them over as host values."""
+def image_motion_prepare(images, y0, y1, wy, x0, x1, wx, ch_scale,
+                         ch_offset, out_dtype=torch.float32):
+    """Check the operands, allocate the output and plan the cut ->
+    (launch, out), as transform_prepare: `launch()` enqueues K4 on the
+    current stream and counts one launch. Contiguous CUDA tensors only;
+    ch_scale and ch_offset travel as kernel arguments: hand them over as
+    host values."""
     b, hc, wc, t, s = check_image_motion_args(images, y0, y1, wy, x0, x1, wx,
                                               out_dtype)
     for name, v in zip(("images", "y0", "y1", "wy", "x0", "x1", "wx"),
@@ -201,24 +209,41 @@ def fused_image_motion_transform_cuda(images, y0, y1, wy, x0, x1, wx,
     if images.device.type != "cuda":
         raise ValueError(f"fused_image_motion_transform_cuda needs CUDA "
                          f"tensors, got {images.device}")
-    if b * t > 65535:  # the kernel's grid.y is one (sample, frame) each
-        raise ValueError(f"B*T = {b * t} frames > 65535 per launch")
     scale, offset = channel_affine(ch_scale, ch_offset)
     out = torch.empty((b, t, s, s, 3), dtype=out_dtype, device=images.device)
+    keep = (images, y0, y1, wy, x0, x1, wx)  # alive until the launch is queued
     if out.numel() == 0:
-        return out
+        return (lambda: keep), out
+    plan = transform_plan(b, t, hc, wc, s, out.element_size())
     lib = _build.library()
     fn = (lib.zsvc_image_motion_transform_f32 if out_dtype == torch.float32
           else lib.zsvc_image_motion_transform_bf16)
-    with torch.cuda.device(images.device):
-        stream = torch.cuda.current_stream().cuda_stream
-        err = fn(images.data_ptr(), y0.data_ptr(), y1.data_ptr(),
-                 wy.data_ptr(), x0.data_ptr(), x1.data_ptr(), wx.data_ptr(),
-                 out.data_ptr(), *map(float, scale), *map(float, offset),
-                 b, t, hc, wc, s, stream)
-    _build.check(err, "image_motion_transform")
-    with _count_lock:
-        fused_image_motion_transform_cuda.launches += 1
+    args = (images.data_ptr(), y0.data_ptr(), y1.data_ptr(), wy.data_ptr(),
+            x0.data_ptr(), x1.data_ptr(), wx.data_ptr(), out.data_ptr(),
+            *map(float, scale), *map(float, offset), b, t, hc, wc, s,
+            plan["band_rows"], plan["stage_rows"], plan["threads"],
+            plan["smem_bytes"])
+
+    def launch():
+        _build.launch(fn, args, images.device, "image_motion_transform",
+                      plan)
+        with _count_lock:
+            fused_image_motion_transform_cuda.launches += 1
+        return keep
+
+    return launch, out
+
+
+def fused_image_motion_transform_cuda(images, y0, y1, wy, x0, x1, wx,
+                                      ch_scale, ch_offset,
+                                      out_dtype=torch.float32):
+    """Same contract as ops.resample.fused_image_motion_transform, on
+    contiguous CUDA tensors only; raises for anything else. One allocation
+    and one launch (none for an empty output); ch_scale and ch_offset as
+    host values."""
+    launch, out = image_motion_prepare(images, y0, y1, wy, x0, x1, wx,
+                                       ch_scale, ch_offset, out_dtype)
+    launch()
     return out
 
 
