@@ -1,7 +1,9 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port: its serving path, its video
 training path, its still-image (SUN) training path with the zero-shot
-evaluation, and the temporal conv op (one GPU).
+evaluation, the temporal conv op, and the other models and options of the
+trainer: C3D (trained and served), resnet18 (R3D-18 + the linear head),
+--remat full / convs and --fixconvs (one GPU).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -99,11 +101,33 @@ result line) if it fails:
      once against the plain version's, and its time beside the plain
      version's and F.conv3d's (cuDNN) on the same tensors; for each shape
      the kernel and the staging path it took (TMA, cp.async, 2-byte loads)
-     and its TFLOP/s against the peak for its type.
+     and its TFLOP/s against the peak for its type;
+ 11. C3D through the training CLI at full width (--network c3d --bs 16,
+     bf16 over float32 masters, random init): C3D_STEPS steps and the
+     evaluation at one K1 launch a step and a dispatch and no K2 (C3D has
+     no BN); timed steps and peak memory as in phase 7, the evaluation's
+     clips/s; two float32 steps card vs CPU (seeded He weights,
+     torch_helpers.calibrate_c3d; dropout at rate 0 on both sides);
+ 12. C3D served: phase 5's requests to an engine with --network c3d (bf16,
+     the same seeded He weights), every top_class the direct f32
+     classification's, one K1 launch a dispatch; forward clips/s per bucket;
+ 13. --network resnet18 (R3D-18 + the linear head, dropout drawn on the
+     card) through the training CLI: 20 K2 forward, 20 K2 backward and one
+     K1 launch a step; phase 6 at R3D-18's epilogue shapes; timed steps;
+ 14. --remat full and --remat convs on r2plus1d_18 at 16 clips through the
+     training CLI: 72 K2 forward (37 + the 35 of the recomputed blocks), 37
+     K2 backward and one K1 a step; timed bf16 steps and peak memory of
+     each beside the plain step's; one float32 step of each against the
+     plain one from the same init and batch (loss rtol 1e-4, BN running
+     statistics moved once);
+ 15. one --fixconvs step: 37 K2 forward, no K2 backward, one K1; the
+     backbone's parameters bit-equal, the head's moved.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
-each main path that launches it ("path": "serve", "train" or "train_sun";
-"op" for K3, which is driven through its public op): its launches
+each main path that launches it ("path": "serve", "train", "train_sun",
+"train_c3d", "serve_c3d", "train_r3d_linear", "train_remat_full",
+"train_remat_convs" or "train_fixconvs"; "op" for K3, which is driven
+through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
@@ -112,9 +136,10 @@ bandwidth is printed beside it), the launch alone (launch_ms: K1, K2
 forward and backward, K4; null where not split), K4's device time in a
 trace (trace_ms; null for the others), and the time of the one
 PyTorch call that computes the same function where there is one
-(library_ms; for K2 forward F.batch_norm at the epilogues without residual
-and ReLU, with the kernel's launch alone there in library_shapes_ms). The
-last is
+(library_ms; for K2 forward F.batch_norm and for K2 backward aten's
+native_batch_norm_backward in eval mode, at the epilogues without residual
+and ReLU, with the kernel's launches alone there in library_shapes_ms).
+The last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. --json PATH also writes every measurement to PATH. It imports
 the port and the helpers in tests/torch_helpers.py (numpy and torch only).
@@ -138,6 +163,9 @@ N_CLIPS, CLIP_LEN, SIZE, MAX_BATCH = 4, 16, 112, 32
 N_VIDEOS, FRAMES, HEIGHT, WIDTH = 16, 64, 240, 320
 TRAIN_BS, TRAIN_STEPS, TRAIN_WARMUP = 16, 8, 3
 CPU_CLIPS = 2  # clips of the float32 steps that also run on the CPU
+C3D_STEPS, P8_STEPS = 4, 2  # C3D's epoch; resnet18's and remat's epochs
+C3D_SEED = 2  # calibrate_c3d's seed for the f32 steps and the served C3D
+REMATS = ("full", "convs")
 SUN_BS, SUN_STEPS = 32, 4   # --bs 32 halves to 16 images a step
 SUN_CANVAS = (256, 342)
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM, published
@@ -558,9 +586,37 @@ def phase_k2(calls, dev, copy_gbs):
     return out
 
 
-def phase_k2_bwd(calls, dev, copy_gbs):
+def k2_bwd_library(x, dy, stats, dx):
+    """aten's native_batch_norm_backward in eval mode (the statistics
+    given, no gradient through them) on the channels-last-3d views: the
+    same dx, d_scale and d_bias as K2 backward where the epilogue has
+    neither residual nor ReLU; a yardstick the port never calls. -> its
+    time and its dx's distance from the kernel's, or the error it raised."""
+    import torch
+
+    scale, mean, var = stats
+    xv, dyv = x.permute(0, 4, 1, 2, 3), dy.permute(0, 4, 1, 2, 3)
+    invstd = torch.rsqrt(var + 1e-5)  # CUDA's asks for the saved pair too
+
+    def lib():
+        return torch.ops.aten.native_batch_norm_backward(
+            dyv, xv, scale, mean, var, mean, invstd, False, 1e-5,
+            [True, True, True])
+
+    try:
+        got = lib()[0].permute(0, 2, 3, 4, 1)
+        return {"library_err": float((got.float() - dx.float()).abs().max()),
+                "library_ms": time_ms(lib)}
+    except RuntimeError as e:  # a yardstick only: record, go on
+        return {"library_error": str(e).splitlines()[0]}
+
+
+def phase_k2_bwd(calls, dev, copy_gbs, key=""):
     """K2 backward, and the K2 forward that feeds it, at every epilogue
-    shape of one 16-clip train step. -> (backward's record, forward's)."""
+    shape of one 16-clip train step (of r2plus1d_18 unless the epilogue
+    `calls` are another model's; `key` names that model in the record and
+    the lines). Beside K2 backward at the epilogues without residual and
+    ReLU, k2_bwd_library. -> (backward's record, forward's)."""
     import torch
 
     from torch_helpers import bf16_ulps
@@ -577,7 +633,8 @@ def phase_k2_bwd(calls, dev, copy_gbs):
     g = torch.Generator(device=dev).manual_seed(1)
     out = {"max_abs_err": 0.0, "sum_max_rel_err": 0.0, "shapes": [],
            "ms": 0.0, "plain_ms": 0.0, "bytes": 0, "flops": 0,
-           "launches_ms": 0.0, "pass2_ms": 0.0}
+           "launches_ms": 0.0, "pass2_ms": 0.0, "library_ms": None,
+           "library_shapes_ms": 0.0, "library_max_abs_err": 0.0}
     fwd = {"max_abs_err": 0.0, "shapes": [], "ms": 0.0, "plain_ms": 0.0,
            "launch_ms": 0.0, "library_ms": None, "library_shapes_ms": 0.0,
            "library_max_abs_err": 0.0, "bytes": 0, "flops": 0}
@@ -680,12 +737,14 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                     plan = bwd_plan(x.numel(), c, x.element_size(), True)
                     by, fl = epilogue_bytes_flops(shape, x.element_size(),
                                                   res, relu, True)
+                    lib = ({} if res or relu else k2_bwd_library(
+                        x, dy, (scale, mean, var), got[0]))
                     row = {"shape": list(shape), "dtype": str(dt)[6:],
                            "residual": res, "relu": relu, "calls": n,
                            "max_abs_err": err, "sum_rel_err": rel, "ms": ms,
                            "plain_ms": plain, "launches_ms": dev_ms,
                            "pass2_ms": p2_ms, "plan": plan,
-                           "GB_per_s": by / 1e9 / (dev_ms / 1e3)}
+                           "GB_per_s": by / 1e9 / (dev_ms / 1e3), **lib}
                     out["shapes"].append(row)
                     if dt == torch.bfloat16:
                         out["ms"] += n * ms
@@ -694,9 +753,16 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                         out["pass2_ms"] += n * p2_ms
                         out["bytes"] += n * by
                         out["flops"] += n * fl
+                        if "library_ms" in lib:
+                            out["library_ms"] = ((out["library_ms"] or 0.0)
+                                                 + n * lib["library_ms"])
+                            out["library_shapes_ms"] += n * dev_ms
+                            out["library_max_abs_err"] = max(
+                                out["library_max_abs_err"],
+                                lib["library_err"])
                         add_k2_fwd(fwd, n, ft, shape, x.element_size(), res,
                                    relu)
-                    say(f"[K2 fwd, train] {'x'.join(map(str, shape))} "
+                    say(f"[K2 fwd, train{key}] {'x'.join(map(str, shape))} "
                         f"{str(dt)[6:]} res={int(res)} relu={int(relu)} "
                         f"x{n}: err {f_err:.3g} ({f_ulps:.2f} ulp)  wrapper "
                         f"{ft['ms']:.4f} ms, launch alone "
@@ -704,27 +770,37 @@ def phase_k2_bwd(calls, dev, copy_gbs):
                         f"{ft['plain_ms']:.3f} ms"
                         + ("" if "library_ms" not in ft else
                            f"  F.batch_norm {ft['library_ms']:.4f} ms"))
-                    say(f"[K2 bwd] {'x'.join(map(str, shape))} "
+                    say(f"[K2 bwd{key}] {'x'.join(map(str, shape))} "
                         f"{row['dtype']} res={int(res)} relu={int(relu)} "
                         f"x{n}: dx err {err:.3g}, sums rel {rel:.2g}  wrapper "
                         f"{ms:.3f} ms, launches alone {dev_ms:.4f} ms "
                         f"({row['GB_per_s']:.0f} GB/s; {plan['path']}, "
                         f"{plan['col_tiles'] * plan['chunks']} blocks of "
                         f"{plan['threads']}), pass 2 alone {p2_ms * 1e3:.1f} "
-                        f"us  plain {plain:.3f} ms")
+                        f"us  plain {plain:.3f} ms"
+                        + ("" if "library_ms" not in lib else
+                           f"  native_batch_norm_backward "
+                           f"{lib['library_ms']:.4f} ms"))
             del x, r, dy, y, got, again, want
         del x32, r32, dy32
-    say(f"[K2 bwd] all {len(shapes)} shapes x 8 variants agree and repeat "
-        f"bit for bit; per bf16 backward pass at {TRAIN_BS} clips: wrapper "
-        f"{out['ms']:.3f} ms, the launches alone {out['launches_ms']:.3f} "
-        f"ms of which pass 2 {out['pass2_ms']:.3f} ms, plain "
-        f"{out['plain_ms']:.3f} ms over {sum(calls.values())} epilogues; "
+    lib = ("native_batch_norm_backward not timed"
+           if out["library_ms"] is None else
+           f"native_batch_norm_backward {out['library_ms']:.3f} ms at the "
+           f"epilogues without residual and ReLU, where the kernel's "
+           f"launches take {out['library_shapes_ms']:.3f} ms (dx within "
+           f"{out['library_max_abs_err']:.3g})")
+    say(f"[K2 bwd{key}] all {len(shapes)} shapes x 8 variants agree and "
+        f"repeat bit for bit; per bf16 backward pass at {TRAIN_BS} clips: "
+        f"wrapper {out['ms']:.3f} ms, the launches alone "
+        f"{out['launches_ms']:.3f} ms of which pass 2 {out['pass2_ms']:.3f} "
+        f"ms, plain {out['plain_ms']:.3f} ms over {sum(calls.values())} "
+        f"epilogues; {lib}; "
         + bound(out, out["bytes"], out["flops"], copy_gbs))
-    say(f"[K2 fwd, train] the same shapes and variants agree; "
+    say(f"[K2 fwd, train{key}] the same shapes and variants agree; "
         + k2_fwd_text(fwd, f"at {TRAIN_BS} clips over "
                            f"{sum(calls.values())} epilogues") + "; "
         + bound(fwd, fwd["bytes"], fwd["flops"], copy_gbs))
-    RECORD["k2_bwd"], RECORD["k2_fwd_train"] = out, fwd
+    RECORD["k2_bwd" + key], RECORD["k2_fwd_train" + key] = out, fwd
     return out, fwd
 
 
@@ -768,11 +844,13 @@ def timed_steps(exp, batch, class_embed, smi, tag):
     """TRAIN_STEPS steps of `exp`'s train step on one repeated batch of
     TRAIN_BS clips: every step timed by CUDA events and by the host's clock
     around a synchronise, then the timed ones again queued back to back;
-    finite falling losses, moved BN statistics, float32 masters. -> the
-    measurements."""
+    finite falling losses, moved BN statistics (where the model has BN),
+    float32 masters. -> the measurements."""
     import torch
 
-    stats0 = bn_running(exp.model).clone()
+    has_bn = any(n.endswith("running_mean") for n, _ in
+                 exp.model.named_buffers())
+    stats0 = bn_running(exp.model).clone() if has_bn else None
 
     def one_step():
         return exp.train_step(batch["x"], batch["z"], batch["label"],
@@ -827,8 +905,9 @@ def timed_steps(exp, batch, class_embed, smi, tag):
         f"{[round(v, 2) for v in times]}")
     check(all(math.isfinite(v) for v in losses), f"losses {losses}")
     check(losses[-1] < losses[0], f"loss did not fall: {losses}")
-    moved = float((bn_running(exp.model) - stats0).abs().max())
-    check(moved > 1e-3, f"BN running statistics moved by {moved}")
+    if has_bn:
+        moved = float((bn_running(exp.model) - stats0).abs().max())
+        check(moved > 1e-3, f"BN running statistics moved by {moved}")
     check(int(exp.optimizer.total_notfinite) == 0, "a finite step skipped")
     for p in exp.model.parameters():
         check(p.dtype == torch.float32 and p.grad.dtype == torch.float32,
@@ -865,15 +944,83 @@ def eval_forward_rate(exp, clips_per_dispatch, smi, tag):
     return out
 
 
-def train_argv(tmp, dev, dtype, bs, samples):
-    """The training CLI's arguments of phase 7 (one epoch, a last.npz and,
-    where the epoch's accuracy is above 0, a checkpoint.npz)."""
-    return ["--dataset", "synthetic", "--network", "r2plus1d_18",
+def cli_argv(tmp, dev, dtype, bs, samples, *flags, network="r2plus1d_18"):
+    """The training CLI's arguments for one epoch of `samples` synthetic
+    clips at batch `bs`."""
+    return ["--dataset", "synthetic", "--network", network,
             "--bs", str(bs), "--train_samples", str(samples),
             "--n_epochs", "1", "--compute_dtype", dtype, "--save_path",
             os.path.join(tmp, "runs"), "--no-progressbar",
-            "--nopretrained", "--device", str(dev), "--checkpoint_every",
-            "1"]
+            "--nopretrained", "--device", str(dev), *flags]
+
+
+def train_argv(tmp, dev, dtype, bs, samples):
+    """The training CLI's arguments of phase 7 (one epoch, a last.npz and,
+    where the epoch's accuracy is above 0, a checkpoint.npz)."""
+    return cli_argv(tmp, dev, dtype, bs, samples, "--checkpoint_every", "1")
+
+
+def f32_card_vs_cpu(args32, dev, tag, first, prepare=None):
+    """Two float32 steps of CPU_CLIPS clips of the synthetic dataset of the
+    training CLI's arguments `args32`, on the CPU and on the card, from the
+    same seeds and a seeded non-zero Adam state (`prepare(model)` first, on
+    both sides): loss rtol 1e-4, parameters atol 2e-5, and the parameter
+    `first` moved by more than the bar. -> (the record, the card's
+    Experiment, its batch, its class embeddings)."""
+    import numpy as np
+    import torch
+
+    from torch_helpers import seed_adam
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.config import (
+        config_from_namespace,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.datasets import (
+        build_datasets,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        HostPipeline,
+        device_batch,
+    )
+
+    cfg32 = config_from_namespace(
+        train_cli.build_arg_parser().parse_args(args32))
+    data32 = build_datasets(cfg32, None)
+    table = data32["training"][0]
+    host = next(iter(HostPipeline(table, cfg32, CPU_CLIPS, seed=cfg32.seed)))
+    ce_np = np.asarray(table.class_embed, np.float32)
+    runs = {}
+    for d in ("cpu", dev):
+        exp = train_cli.Experiment(cfg32, data32, device=d)
+        if prepare is not None:
+            prepare(exp.model)
+        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+        w0 = exp.model.state_dict()[first].detach().cpu().clone()
+        b = device_batch(host, table.n_clips, cfg32.clip_len,
+                         torch.float32, d)
+        ce = torch.from_numpy(ce_np).to(d)
+        t0 = time.perf_counter()
+        ls = [float(exp.train_step(b["x"], b["z"], b["label"], b["weight"],
+                                   ce)["loss"]) for _ in range(2)]
+        runs[str(d)] = (ls, {k: v.detach().cpu().clone() for k, v in
+                             exp.model.named_parameters()},
+                        time.perf_counter() - t0)
+        exp.log.close()
+        if d == "cpu":
+            del exp, b
+    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, _) = runs["cpu"], runs[str(dev)]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
+    dmax = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
+    moved = float((p_gpu[first] - w0).abs().max())
+    say(f"[{tag}] 2 float32 steps of {CPU_CLIPS} clips, card vs CPU "
+        f"(CPU {s_cpu:.1f} s): losses {l_gpu} vs {l_cpu} (rel {rel:.2g}, "
+        f"bar 1e-4); parameters differ by at most {dmax:.3g} (bar 2e-5) "
+        f"after moving by up to {moved:.3g}")
+    check(rel <= 1e-4, f"{tag}: loss card vs CPU: {l_gpu} vs {l_cpu}")
+    check(dmax <= 2e-5, f"{tag}: parameters card vs CPU: {dmax}")
+    check(moved > 1e-4, f"{tag}: the two steps moved {first} by {moved}")
+    return ({"loss_rel": rel, "param_max_abs": dmax, "cpu_seconds": s_cpu},
+            exp, b, ce)
 
 
 def phase_train(tmp, dev, smi, copy_gbs):
@@ -883,19 +1030,7 @@ def phase_train(tmp, dev, smi, copy_gbs):
     import numpy as np
     import torch
 
-    from torch_helpers import bf16_ulps, seed_adam
-    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
-    from zeroshotvideoclassification_tpu_torch.config import (
-        config_from_namespace,
-        transform_dtype,
-    )
-    from zeroshotvideoclassification_tpu_torch.data.datasets import (
-        build_datasets,
-    )
-    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
-        HostPipeline,
-        device_batch,
-    )
+    from torch_helpers import bf16_ulps
     from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
         bn_apply_relu_bwd_cuda,
     )
@@ -905,41 +1040,18 @@ def phase_train(tmp, dev, smi, copy_gbs):
 
     # (a) the entry point: one epoch of TRAIN_STEPS batches of TRAIN_BS
     args = argv("bfloat16", TRAIN_BS, TRAIN_BS * TRAIN_STEPS)
-    zero_counts()
     bn_apply_relu_bwd_cuda.dy_copies = 0
-    t0 = time.perf_counter()
-    summary = train_cli.main(args)
-    torch.cuda.synchronize()
-    wall = time.perf_counter() - t0
-    launches = read_counts()
+    summary, launches, wall = cli_epoch(args, "train", expect(
+        TRAIN_STEPS + 1, 37 * (TRAIN_STEPS + 1), 37 * TRAIN_STEPS))
     copies = bn_apply_relu_bwd_cuda.dy_copies
-    say(f"[train] cli.main {' '.join(args[:12])} ...: {TRAIN_STEPS} steps "
-        f"and the zero-shot evaluation in {wall:.1f} s (cuDNN's algorithm "
-        f"timing included), mean loss {summary['loss']:.5f}, test accuracy "
-        f"{summary['synthetic_test_accuracy']:.1f}, best accuracy "
-        f"{summary['best_accuracy']:.1f}, launches {launches}, dy copies "
-        f"{copies}")
-    check(math.isfinite(summary["loss"]) and summary["loss"] > 0,
-          f"cli.main loss {summary['loss']}")
-    check(0 <= summary["synthetic_test_accuracy"] <= 100
-          and summary["best_accuracy"] == summary["synthetic_test_accuracy"],
+    say(f"[train] {TRAIN_STEPS} steps; best accuracy "
+        f"{summary['best_accuracy']:.1f}, dy copies {copies}")
+    check(summary["best_accuracy"] == summary["synthetic_test_accuracy"],
           f"cli.main accuracy {summary}")
-    # 16 test videos of 1 clip: one evaluation dispatch (K1 + 37 epilogues)
-    check(launches == {"video_transform": TRAIN_STEPS + 1,
-                       "bn_apply_relu": 37 * (TRAIN_STEPS + 1),
-                       "bn_apply_relu_bwd": 37 * TRAIN_STEPS,
-                       "image_motion_transform": 0, "temporal_conv3": 0},
-          f"launches per step: {launches}")
 
     # (b) steps on one repeated batch, the same objects the CLI builds
-    ns = train_cli.build_arg_parser().parse_args(args)
-    cfg = config_from_namespace(ns)
-    datasets = build_datasets(cfg, None)
-    exp = train_cli.Experiment(cfg, datasets, device=dev)
-    table = datasets["training"][0]
-    host = next(iter(HostPipeline(table, cfg, TRAIN_BS, seed=cfg.seed)))
-    batch = device_batch(host, table.n_clips, cfg.clip_len,
-                         transform_dtype(cfg), dev)
+    exp, host, class_embed = experiment(args, dev)
+    batch = to_card(exp, host)
     check(tuple(batch["x"].shape) == (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3)
           and batch["x"].dtype == torch.bfloat16, "train batch shape")
     # K1 at the training shape: the pipeline's own canvases and taps (random
@@ -961,49 +1073,14 @@ def phase_train(tmp, dev, smi, copy_gbs):
         f"within {ulps:.2f} ulp of the plain transform): "
         + bound(k1, row["bytes"], row["flops"], copy_gbs))
     del k1_args, want
-    class_embed = torch.from_numpy(np.asarray(table.class_embed,
-                                              np.float32)).to(dev)
     timed = timed_steps(exp, batch, class_embed, smi, "train")
     eval_fwd = eval_forward_rate(exp, (TRAIN_BS, 128), smi, "train")
     exp.log.close()
     del exp, batch
 
     # (c) two float32 steps, card against CPU, same seeds
-    args32 = argv("float32", CPU_CLIPS, CPU_CLIPS)
-    cfg32 = config_from_namespace(
-        train_cli.build_arg_parser().parse_args(args32))
-    data32 = build_datasets(cfg32, None)
-    table = data32["training"][0]
-    host = next(iter(HostPipeline(table, cfg32, CPU_CLIPS, seed=cfg32.seed)))
-    ce_np = np.asarray(table.class_embed, np.float32)
-    runs = {}
-    for d in ("cpu", dev):
-        exp = train_cli.Experiment(cfg32, data32, device=d)
-        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
-        w0 = exp.model.model.stem[0].weight.detach().cpu().clone()
-        b = device_batch(host, table.n_clips, cfg32.clip_len,
-                         torch.float32, d)
-        ce = torch.from_numpy(ce_np).to(d)
-        t0 = time.perf_counter()
-        ls = [float(exp.train_step(b["x"], b["z"], b["label"], b["weight"],
-                                   ce)["loss"]) for _ in range(2)]
-        runs[str(d)] = (ls, {k: v.detach().cpu().clone() for k, v in
-                             exp.model.named_parameters()},
-                        time.perf_counter() - t0)
-        exp.log.close()
-        if d == "cpu":
-            del exp, b
-    (l_cpu, p_cpu, s_cpu), (l_gpu, p_gpu, _) = runs["cpu"], runs[str(dev)]
-    rel = max(abs(a - b) / abs(b) for a, b in zip(l_gpu, l_cpu))
-    dmax = max(float((p_gpu[k] - p_cpu[k]).abs().max()) for k in p_cpu)
-    moved = float((p_gpu["model.stem.0.weight"] - w0).abs().max())
-    say(f"[train] 2 float32 steps of {CPU_CLIPS} clips, card vs CPU "
-        f"(CPU {s_cpu:.1f} s): losses {l_gpu} vs {l_cpu} (rel {rel:.2g}, "
-        f"bar 1e-4); parameters differ by at most {dmax:.3g} (bar 2e-5) "
-        f"after moving by up to {moved:.3g}")
-    check(rel <= 1e-4, f"loss card vs CPU: {l_gpu} vs {l_cpu}")
-    check(dmax <= 2e-5, f"parameters card vs CPU: {dmax}")
-    check(moved > 1e-4, f"the two steps moved the stem weights by {moved}")
+    f32, exp, b, ce = f32_card_vs_cpu(argv("float32", CPU_CLIPS, CPU_CLIPS),
+                                      dev, "train", "model.stem.0.weight")
 
     # (d) a NaN batch: the step must leave the optimizer and weights alone
     before = {k: v.detach().clone() for k, v in exp.model.named_parameters()}
@@ -1032,8 +1109,7 @@ def phase_train(tmp, dev, smi, copy_gbs):
     RECORD["train"] = {
         "launches": launches, "dy_copies": copies, "cli_seconds": wall,
         "cli_summary": summary, **timed, "eval_forward": eval_fwd,
-        "f32_card_vs_cpu": {
-            "loss_rel": rel, "param_max_abs": dmax, "cpu_seconds": s_cpu}}
+        "f32_card_vs_cpu": f32}
     RECORD["k1_train"] = k1
     return launches, k1, summary
 
@@ -1768,9 +1844,13 @@ def get(url):
         return json.loads(r.read())
 
 
-def phase_serve(paths, m32, proto, expected, dev, smi):
+def phase_serve(paths, prepare, proto, expected, dev, smi, tag="serve",
+                network="r2plus1d_18", epilogues=37, more_buckets=(64, 128)):
+    """The port's engine (bf16, `network`, its weights set by
+    `prepare(model)`) behind the HTTP server: every served top_class equal
+    to `expected` (the direct f32 classification), one K1 and `epilogues`
+    K2 launches a dispatch; forward clips/s per bucket. -> launches."""
     import torch
-    from torch_helpers import copy_bn
 
     from zeroshotvideoclassification_tpu_torch.serve import (
         InferenceEngine,
@@ -1779,16 +1859,15 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
 
     names = [f"video{k:02d}" for k in range(N_VIDEOS)]
     engine = InferenceEngine(
-        names, proto, network="r2plus1d_18", head="mlp", weights=None,
+        names, proto, network=network, head="mlp", weights=None,
         n_clips=N_CLIPS, clip_len=CLIP_LEN, size=SIZE, max_batch=MAX_BATCH,
         compute_dtype="bfloat16", device=dev)
-    # phase 4's weights: the same seeded init, and its BN statistics
-    copy_bn(m32, engine.model)
+    prepare(engine.model)
     server = service = None
     try:
         t0 = time.perf_counter()
         engine.warmup()
-        say(f"[serve] warmup of ladder {engine.batch_buckets}: "
+        say(f"[{tag}] warmup of ladder {engine.batch_buckets}: "
             f"{time.perf_counter() - t0:.2f} s")
         server, service = start_server(engine, port=0)
         url = f"http://127.0.0.1:{server.server_address[1]}"
@@ -1833,14 +1912,17 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
                 want = names[int(expected[paths.index(path)])]
                 check(r["top_class"] == want,
                       f"{path}: served {r['top_class']}, f32 says {want}")
-        say(f"[serve] round {rnd + 1}: {len(requests)} concurrent POST "
+        say(f"[{tag}] round {rnd + 1}: {len(requests)} concurrent POST "
             f"/classify of {[len(r) for r in requests]} videos, latency "
             f"{[round(s, 3) for s in lat[-1]]} s  ({smi})")
-    say(f"[serve] every top_class = the direct f32 classification; "
+    say(f"[{tag}] every top_class = the direct f32 classification; "
         f"dispatches {stats['engine']['batch_buckets']}, device_seconds "
         f"{stats['engine']['device_seconds']}; launches {launches}")
-    check(launches["video_transform"] > 0 and launches["bn_apply_relu"] > 0,
-          f"main path launched no kernel: {launches}")
+    n = stats["engine"]["dispatches"]
+    check(n > 0 and launches == {
+        "video_transform": n, "bn_apply_relu": epilogues * n,
+        "bn_apply_relu_bwd": 0, "image_motion_transform": 0,
+        "temporal_conv3": 0}, f"launches of {n} dispatches: {launches}")
 
     # forward throughput per bucket (model only, input already on the card),
     # on this ladder and on the serve CLI's default one (max_batch 128)
@@ -1848,16 +1930,296 @@ def phase_serve(paths, m32, proto, expected, dev, smi):
     model = engine.model
     from zeroshotvideoclassification_tpu_torch.train import eval_step
 
-    for b in engine.batch_buckets + [64, 128]:
+    for b in engine.batch_buckets + list(more_buckets):
         x = torch.rand((b, N_CLIPS, CLIP_LEN, SIZE, SIZE, 3), device=dev,
                        dtype=torch.float32).sub_(0.5).to(torch.bfloat16)
         ms = time_ms(lambda: eval_step(model, x), reps=5 if b <= 32 else 2)
         fwd[b] = {"ms": ms, "clips_per_s": b * N_CLIPS / (ms / 1e3)}
-        say(f"[serve] forward bucket {b} ({b * N_CLIPS} clips) bf16: "
+        say(f"[{tag}] forward bucket {b} ({b * N_CLIPS} clips) bf16: "
             f"{ms:.2f} ms = {fwd[b]['clips_per_s']:.1f} clips/s  ({smi})")
         del x
-    RECORD["serve"] = {"latency_s": lat, "launches": launches,
-                       "stats": stats, "forward": fwd}
+    RECORD[tag] = {"latency_s": lat, "launches": launches, "stats": stats,
+                   "forward": fwd}
+    return launches
+
+
+# ----------------------------------------- the P8 paths (phases 11-15) ----
+
+def expect(k1, fwd, bwd):
+    """The kernels' launch counts of a video path: K1, K2 forward and
+    backward, nothing else."""
+    return {"video_transform": k1, "bn_apply_relu": fwd,
+            "bn_apply_relu_bwd": bwd, "image_motion_transform": 0,
+            "temporal_conv3": 0}
+
+
+def cli_epoch(args, tag, want):
+    """One epoch (and the zero-shot evaluation of its 16 test videos, one
+    dispatch) through cli.main with `args`, the kernels' launches counted
+    around it and held to `want`. -> (summary, launches, seconds)."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = train_cli.main(args)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = read_counts()
+    say(f"[{tag}] cli.main {' '.join(args)}: an epoch and the zero-shot "
+        f"evaluation in {wall:.1f} s (cuDNN's "
+        f"algorithm timing included), mean loss {summary['loss']:.5f}, "
+        f"test accuracy {summary['synthetic_test_accuracy']:.1f}, "
+        f"launches {launches}")
+    check(math.isfinite(summary["loss"]) and summary["loss"] > 0,
+          f"{tag}: cli.main loss {summary['loss']}")
+    check(0 <= summary["synthetic_test_accuracy"] <= 100,
+          f"{tag}: cli.main accuracy {summary}")
+    check(launches == want, f"{tag}: launches {launches}, want {want}")
+    return summary, launches, wall
+
+
+def experiment(args, dev):
+    """cli.main's Experiment for `args`, one host batch of TRAIN_BS clips of
+    its synthetic training table and the table's class embeddings on the
+    card. -> (exp, host batch, class embeddings)."""
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.config import (
+        config_from_namespace,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.datasets import (
+        build_datasets,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+
+    cfg = config_from_namespace(train_cli.build_arg_parser().parse_args(args))
+    datasets = build_datasets(cfg, None)
+    exp = train_cli.Experiment(cfg, datasets, device=dev)
+    table = datasets["training"][0]
+    host = next(iter(HostPipeline(table, cfg, TRAIN_BS, seed=cfg.seed)))
+    ce = torch.from_numpy(np.asarray(table.class_embed, np.float32)).to(dev)
+    return exp, host, ce
+
+
+def to_card(exp, host):
+    """device_batch of `host` for `exp` (K1: one launch)."""
+    from zeroshotvideoclassification_tpu_torch.config import transform_dtype
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        device_batch,
+    )
+
+    return device_batch(host, 1, exp.config.clip_len,
+                        transform_dtype(exp.config), exp.device)
+
+
+def phase_train_c3d(tmp, dev, smi):
+    """C3D through the training CLI at full width (--bs 16, bf16 over
+    float32 masters, random init): C3D_STEPS steps and the evaluation, one
+    K1 launch a step and a dispatch and no K2; timed steps, peak memory and
+    the evaluation's clips/s; two float32 steps card vs CPU with seeded He
+    weights (torch_helpers.calibrate_c3d) and dropout at rate 0 on both
+    sides. -> launches."""
+    from torch_helpers import calibrate_c3d
+
+    args = cli_argv(tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS * C3D_STEPS,
+                    network="c3d")
+    summary, launches, _ = cli_epoch(args, "train_c3d",
+                                     expect(C3D_STEPS + 1, 0, 0))
+    exp, host, ce = experiment(args, dev)
+    check(exp.model.head == "c3d" and exp.model.dropout_rate == 0.1,
+          "C3D's head")
+    batch = to_card(exp, host)
+    timed = timed_steps(exp, batch, ce, smi, "train_c3d")
+    eval_fwd = eval_forward_rate(exp, (TRAIN_BS, 128), smi, "train_c3d")
+    exp.log.close()
+    del exp, batch
+
+    def prepare(model):
+        calibrate_c3d(model, C3D_SEED)
+        model.dropout_rate = 0.0
+
+    f32, exp, _, _ = f32_card_vs_cpu(
+        cli_argv(tmp, dev, "float32", CPU_CLIPS, CPU_CLIPS, network="c3d"),
+        dev, "train_c3d", "conv1.weight", prepare)
+    del exp
+    RECORD["train_c3d"] = {"launches": launches, "cli_summary": summary,
+                           **timed, "eval_forward": eval_fwd,
+                           "f32_card_vs_cpu": f32}
+    return launches
+
+
+def phase_serve_c3d(paths, dev, smi):
+    """C3D served by the port's engine (phase 5's requests, bf16, seeded
+    He weights): every top_class the direct f32 classification's, one K1
+    launch a dispatch. -> launches."""
+    import numpy as np
+    import torch
+
+    from torch_helpers import calibrate_c3d
+    from zeroshotvideoclassification_tpu_torch.cli.infer import load_model
+    from zeroshotvideoclassification_tpu_torch.config import Config
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        device_batch,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.cdist import (
+        cosine_distances,
+    )
+    from zeroshotvideoclassification_tpu_torch.train import eval_step
+
+    cfg = Config(network="c3d", size=SIZE, clip_len=CLIP_LEN,
+                 n_clips=N_CLIPS, compute_dtype="float32")
+    m32, _ = load_model(cfg, None, dev)
+    calibrate_c3d(m32, C3D_SEED)
+    proto = eval_step(m32, device_batch(host_batch(paths, N_VIDEOS), N_CLIPS,
+                                        CLIP_LEN, torch.float32, dev)["x"])
+    dist = cosine_distances(proto, proto).cpu().numpy()
+    off = dist + np.eye(N_VIDEOS) * 9
+    say(f"[serve_c3d] 16 class prototypes (f32 C3D embeddings of the 16 "
+        f"videos): smallest distance between two = {off.min():.3g}")
+    check(off.min() > 1e-4, "C3D prototypes too close to rank")
+    del m32
+    launches = phase_serve(paths, lambda m: calibrate_c3d(m, C3D_SEED),
+                           proto.cpu().numpy(), dist.argmin(axis=1), dev,
+                           smi, tag="serve_c3d", network="c3d", epilogues=0,
+                           more_buckets=())
+    RECORD["serve_c3d"]["prototype_min_distance"] = float(off.min())
+    return launches
+
+
+def phase_train_resnet18(tmp, dev, smi, copy_gbs):
+    """--network resnet18 (r3d_18 + the linear head) through the training
+    CLI: 20 K2 forward and 20 K2 backward epilogues and one K1 launch a
+    step; K2 forward and backward against their plain versions and timed
+    at r3d_18's epilogue shapes (phase 6 on that model); timed steps.
+    -> (launches, K2 forward's record, K2 backward's)."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli.infer import load_model
+    from zeroshotvideoclassification_tpu_torch.config import Config
+
+    m, _ = load_model(Config(network="resnet18", size=SIZE, clip_len=CLIP_LEN,
+                             compute_dtype="float32"), None, dev)
+    calls = epilogue_calls(m, torch.zeros(
+        (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3), device=dev))
+    check(m.head == "linear" and sum(calls.values()) == 20,
+          f"resnet18's epilogues {calls}")
+    del m
+    k2b, k2f = phase_k2_bwd(calls, dev, copy_gbs, key="_r3d")
+    args = cli_argv(tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS * P8_STEPS,
+                    network="resnet18")
+    summary, launches, _ = cli_epoch(args, "train_r3d_linear", expect(
+        P8_STEPS + 1, 20 * (P8_STEPS + 1), 20 * P8_STEPS))
+    exp, host, ce = experiment(args, dev)
+    timed = timed_steps(exp, to_card(exp, host), ce, smi, "train_r3d_linear")
+    exp.log.close()
+    RECORD["train_r3d_linear"] = {"launches": launches,
+                                  "cli_summary": summary, **timed}
+    return launches, k2f, k2b
+
+
+def phase_remat(tmp, dev, smi):
+    """--remat full and --remat convs on r2plus1d_18 at 16 clips: through
+    the training CLI (the recomputed blocks launch their 35 epilogues
+    again: 72 K2 forward, 37 K2 backward, 1 K1 a step; the evaluation does
+    not rematerialise); timed bf16 steps and peak memory of each beside the
+    plain step, one Experiment at a time; and one float32 step of each on
+    the same batch from the same init: loss within rtol 1e-4 of the plain
+    step's, the BN running statistics moved once (as far as the plain
+    step moved them, and every num_batches_tracked 1). -> launches by
+    remat."""
+    import torch
+
+    launches = {}
+    for remat in REMATS:
+        args = cli_argv(tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS * P8_STEPS,
+                        "--remat", remat)
+        _, launches[remat], _ = cli_epoch(args, f"train_remat_{remat}", expect(
+            P8_STEPS + 1, 72 * P8_STEPS + 37, 37 * P8_STEPS))
+    timed, f32 = {}, {}
+    for remat in ("none",) + REMATS:
+        flags = () if remat == "none" else ("--remat", remat)
+        torch.cuda.empty_cache()
+        exp, host, ce = experiment(cli_argv(
+            tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS, *flags), dev)
+        timed[remat] = timed_steps(exp, to_card(exp, host), ce, smi,
+                                   f"remat {remat}")
+        exp.log.close()
+        del exp
+        torch.cuda.empty_cache()
+        exp, host, ce = experiment(cli_argv(
+            tmp, dev, "float32", TRAIN_BS, TRAIN_BS, *flags), dev)
+        stats0 = bn_running(exp.model).clone()
+        b = to_card(exp, host)
+        loss = float(exp.train_step(b["x"], b["z"], b["label"], b["weight"],
+                                    ce)["loss"])
+        tracked = {int(v) for k, v in exp.model.state_dict().items()
+                   if k.endswith("num_batches_tracked")}
+        f32[remat] = (loss, bn_running(exp.model) - stats0, tracked)
+        exp.log.close()
+        del exp, b
+    loss0, move0, _ = f32["none"]
+    out = {"launches": launches, "timed": timed, "f32": {}}
+    for remat in REMATS:
+        loss, move, tracked = f32[remat]
+        rel = abs(loss - loss0) / abs(loss0)
+        off = float((move - move0).abs().max())
+        say(f"[remat {remat}] float32 step of {TRAIN_BS} clips: loss "
+            f"{loss} vs {loss0} without remat (rel {rel:.2g}, bar 1e-4); "
+            f"running statistics moved as the plain step's within "
+            f"{off:.3g} (its move up to {float(move0.abs().max()):.3g}), "
+            f"num_batches_tracked {sorted(tracked)}; bf16 step "
+            f"{timed[remat]['step_event_ms']:.2f} ms by events, peak "
+            f"{timed[remat]['peak_GiB']:.2f} GiB (no remat "
+            f"{timed['none']['step_event_ms']:.2f} ms, "
+            f"{timed['none']['peak_GiB']:.2f} GiB)  ({smi})")
+        check(rel <= 1e-4, f"remat {remat}: f32 loss {loss} vs {loss0}")
+        check(tracked == {1} and off <= 1e-3 * float(move0.abs().max()),
+              f"remat {remat}: running statistics moved {off} off the "
+              f"plain step's, num_batches_tracked {tracked}")
+        out["f32"][remat] = {"loss_rel": rel, "running_stats_max_abs": off}
+    RECORD["remat"] = out
+    return launches
+
+
+def phase_fixconvs(tmp, dev):
+    """One --fixconvs step (r2plus1d_18, bf16, 16 clips): 37 K2 forward
+    epilogues, no K2 backward, one K1; the backbone's parameters bit-equal
+    and without gradients, the head's moved, the BN running statistics
+    moved. -> launches."""
+    import torch
+
+    exp, host, ce = experiment(cli_argv(tmp, dev, "bfloat16", TRAIN_BS,
+                                        TRAIN_BS, "--fixconvs"), dev)
+    before = {k: v.detach().clone() for k, v in exp.model.state_dict().items()}
+    zero_counts()
+    b = to_card(exp, host)
+    loss = float(exp.train_step(b["x"], b["z"], b["label"], b["weight"],
+                                ce)["loss"])
+    torch.cuda.synchronize()
+    launches = read_counts()
+    after = exp.model.state_dict()
+    params = dict(exp.model.named_parameters())
+    frozen = [k for k in params if k.startswith("model.")]
+    check(all(torch.equal(after[k], before[k]) and params[k].grad is None
+              for k in frozen), "--fixconvs moved a backbone parameter")
+    check(all(not torch.equal(after[k], before[k]) for k in params
+              if k not in frozen), "--fixconvs: the head did not move")
+    moved = max(float((after[k] - before[k]).abs().max()) for k in after
+                if "running" in k)
+    check(moved > 1e-3, f"--fixconvs: BN running statistics moved {moved}")
+    check(launches == expect(1, 37, 0), f"--fixconvs launches {launches}")
+    say(f"[train_fixconvs] one step, loss {loss:.5f}: {len(frozen)} backbone "
+        f"parameters bit-equal, {len(params) - len(frozen)} head parameters "
+        f"moved, BN running statistics moved by up to {moved:.3g}; "
+        f"launches {launches}")
+    exp.log.close()
+    RECORD["train_fixconvs"] = {"launches": launches, "loss": loss}
     return launches
 
 
@@ -1878,6 +2240,7 @@ def main(argv=None):
     # the helpers shared with the port's tests (numpy and torch only)
     sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
         __file__)), "tests"))
+    from torch_helpers import copy_bn
 
     dev = torch.device(DEVICE)
     # the serving settings (cli/infer.build_scoring_state)
@@ -1900,7 +2263,9 @@ def main(argv=None):
             dtype=torch.bfloat16))
         del m16
         k2 = phase_k2(calls, dev, copy_gbs)
-        serve_launches = phase_serve(paths, m32, proto, expected, dev, smi)
+        # phase 4's weights: the same seeded init, and its BN statistics
+        serve_launches = phase_serve(paths, lambda m: copy_bn(m32, m), proto,
+                                     expected, dev, smi)
         train_calls = epilogue_calls(m32, torch.zeros(
             (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3), device=dev))
         del m32
@@ -1916,6 +2281,17 @@ def main(argv=None):
         sun_launches, _ = phase_sun(tmp, dev, smi)
         torch.cuda.empty_cache()
         k3_launches, k3 = phase_k3(dev, copy_gbs, smi)
+        torch.cuda.empty_cache()
+        c3d_launches = phase_train_c3d(tmp, dev, smi)
+        torch.cuda.empty_cache()
+        serve_c3d_launches = phase_serve_c3d(paths, dev, smi)
+        torch.cuda.empty_cache()
+        r3d_launches, k2_r3d, k2b_r3d = phase_train_resnet18(tmp, dev, smi,
+                                                             copy_gbs)
+        torch.cuda.empty_cache()
+        remat_launches = phase_remat(tmp, dev, smi)
+        torch.cuda.empty_cache()
+        fix_launches = phase_fixconvs(tmp, dev)
         k4_trace(dev, k4, smi)
 
     outside = [m for m in sys.modules if m.split(".")[0] in (
@@ -1965,6 +2341,30 @@ def main(argv=None):
             "train_sun", sun_launches, k2b),
         row("temporal_conv3", "temporal_conv.cu", "temporal_conv.py:76",
             "op", k3_launches, k3),
+        # the P8 paths: C3D (no BN: K1 only) at the video training and
+        # serving shapes, r3d_18 + linear at its own epilogue shapes, remat
+        # and --fixconvs at r2plus1d_18's training shapes
+        row("video_transform", "video_transform.cu", k1_at, "train_c3d",
+            c3d_launches, k1_train),
+        row("video_transform", "video_transform.cu", k1_at, "serve_c3d",
+            serve_c3d_launches, k1),
+        row("video_transform", "video_transform.cu", k1_at,
+            "train_r3d_linear", r3d_launches, k1_train),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train_r3d_linear",
+            r3d_launches, k2_r3d),
+        row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
+            "train_r3d_linear", r3d_launches, k2b_r3d),
+        *[row(name, source, at, f"train_remat_{remat}",
+              remat_launches[remat], rec)
+          for remat in REMATS for name, source, at, rec in (
+              ("video_transform", "video_transform.cu", k1_at, k1_train),
+              ("bn_apply_relu", "bn_apply_relu.cu", k2_at, k2_train),
+              ("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
+               k2b))],
+        row("video_transform", "video_transform.cu", k1_at, "train_fixconvs",
+            fix_launches, k1_train),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train_fixconvs",
+            fix_launches, k2_train),
     ]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was never launched on a main path: {kernels}")

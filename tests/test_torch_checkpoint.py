@@ -273,9 +273,26 @@ def test_warm_start_loads_torch_sources(source, tmp_path):
             assert torch.equal(v, before[k]), k
 
 
+class _Payload:
+    """An object a pickle can carry besides tensors (a file from elsewhere
+    could carry code the same way)."""
+
+
 def test_warm_start_refuses_c3d_pickles(tmp_path):
-    with pytest.raises(NotImplementedError, match="ROADMAP P8"):
-        warm_start(str(tmp_path / "c3d.pickle"), _port()[0])
+    """A c3d.pickle is read with torch.load(weights_only=True): one that
+    carries any object besides tensors and containers is refused, and the
+    model keeps its weights (test_torch_weights.py loads a C3D one)."""
+    import pickle
+
+    path = str(tmp_path / "c3d.pickle")
+    m = _port()[0]
+    sd = {f"model.{k}": v for k, v in m.state_dict().items()}
+    torch.save({**sd, "payload": _Payload()}, path)
+    before = {k: v.clone() for k, v in m.state_dict().items()}
+    with pytest.raises(pickle.UnpicklingError, match="Weights only load"):
+        warm_start(path, m)
+    for k, v in m.state_dict().items():
+        assert torch.equal(v, before[k]), k
 
 
 def test_async_checkpointer_keeps_order_and_reraises(tmp_path):

@@ -44,7 +44,7 @@ def test_every_port_module_imports():
     mods = _all_modules()
     for name in ("config", "_build", "ops.resample", "ops.resample_cuda",
                  "ops.bn_cuda", "ops.cdist", "ops.temporal_conv",
-                 "eval.zeroshot", "models.layers",
+                 "eval.zeroshot", "models.layers", "models.c3d",
                  "models.resnet3d", "models.heads", "models.bridge",
                  "train.checkpoint", "train.async_ckpt", "train.step",
                  "train.optimizer", "utils.profiler",
@@ -165,7 +165,8 @@ def test_sources_cover_the_whole_port():
     rel = [os.path.relpath(p, ROOT) for p in _sources()]
     assert "chip_smoke.py" in rel and len(rel) > 40
     for sub in (("cli", "main.py"), ("eval", "zeroshot.py"),
-                ("ops", "temporal_conv.py"), ("ops", "resample_cuda.py")):
+                ("ops", "temporal_conv.py"), ("ops", "resample_cuda.py"),
+                ("models", "c3d.py")):
         assert os.path.join("zeroshotvideoclassification_tpu_torch",
                             *sub) in rel, sub
 

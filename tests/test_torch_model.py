@@ -121,16 +121,9 @@ def test_cosine_distances_match_jax(rng):
 
 def test_bridge_rejects_leaves_without_counterpart():
     with pytest.raises(ValueError, match="no counterpart"):
-        bridge.from_flat({"backbone/conv1/w": np.zeros((3, 3, 3, 3, 8))}, {})
+        bridge.from_flat({"backbone/conv6/w": np.zeros((3, 3, 3, 3, 8))}, {})
     with pytest.raises(ValueError, match="no counterpart"):
-        bridge.from_flat({"head/regressor/w": np.zeros((512, 300))}, {})
-
-
-def test_unported_heads_raise():
-    with pytest.raises(ValueError, match="not ported"):
-        get_network(Config(network="r2plus1d_18", head="linear"))
-    with pytest.raises(ValueError, match="not ported"):
-        get_network(Config(network="c3d"))
+        bridge.from_flat({"head/fc3/w": np.zeros((512, 300))}, {})
 
 
 def _save_jax_checkpoint(path, params, state):

@@ -6,6 +6,7 @@ functions, a sequence of train steps on the same batches, the non-finite
 skip, bf16 compute with float32 masters, and the training CLI. Inputs come
 from numpy seeds and weights cross through models/bridge."""
 
+import dataclasses
 import os
 
 import jax
@@ -75,26 +76,27 @@ def interpret_pallas(monkeypatch):
     monkeypatch.setattr(JL, "_use_pallas_bn", bn_pallas.eligible)
 
 
-def port_model(params, state, arch=ARCH):
-    m = get_network(Config(network=arch, head="mlp"))
+def port_model(params, state, arch=ARCH, **cfg):
+    m = get_network(Config(network=arch, **{"head": "mlp", **cfg}))
     m.load_state_dict(bridge.from_jax(params, state), strict=True)
     return m.to(memory_format=torch.channels_last_3d)
 
 
-def jax_weights(arch=ARCH, seed=0, warm_shape=(2, 1, 8, 32, 32, 3)):
+def jax_weights(arch=ARCH, seed=0, warm_shape=(2, 1, 8, 32, 32, 3), **cfg):
     """(JAX model, params, model_state) as writable numpy trees: the JAX
     init, random BN scale and bias, and running statistics warmed up on a
     seeded batch of `warm_shape` (one train-mode forward with momentum 1).
+    `cfg` (head, clip_pool, ...) goes to both packages' get_network.
     bn_statistics shifts by the running mean; with running means far from
     the batch means its E[s^2] - E[s]^2 cancels on both sides, each in its
     own summation order, and the difference grows through the 37 layers."""
-    model = jax_network(Config(network=arch, head="mlp"))
+    model = jax_network(Config(network=arch, **{"head": "mlp", **cfg}))
     params, state = jax.jit(model.init)(jax.random.PRNGKey(seed))
     params = jax.tree.map(np.array, params)
     state = jax.tree.map(np.array, state)
     rng = np.random.default_rng(seed)
     randomize_bn(params, state, rng)
-    m = port_model(params, state, arch).train()
+    m = port_model(params, state, arch, **cfg).train()
     for bn in m.modules():
         if isinstance(bn, PL.BatchNorm3d):
             bn.momentum = 1.0
@@ -112,6 +114,23 @@ def jax_weights(arch=ARCH, seed=0, warm_shape=(2, 1, 8, 32, 32, 3)):
 
     fill(state, "")
     return model, params, state
+
+
+def jax_leaf_shapes(model):
+    """{port state_dict key: shape} of a JAX ZeroShotModel's params and
+    model_state, through the bridge's names and layouts (nothing
+    allocated)."""
+    params, state = jax.eval_shape(model.init, jax.random.PRNGKey(0))
+    out = {}
+    for tree in (params, state):
+        for path, leaf in jax.tree_util.tree_flatten_with_path(tree)[0]:
+            jpath = "/".join(p.key for p in path)
+            shape = leaf.shape
+            if jpath.endswith("/w"):  # conv DHWIO -> OIDHW, linear [out, in]
+                shape = [shape[i] for i in ((4, 3, 0, 1, 2) if len(shape) == 5
+                                            else (1, 0))]
+            out[bridge.torch_key(jpath)] = tuple(shape)
+    return out
 
 
 def batches(n, b=2, classes=5, seed=11):
@@ -594,10 +613,7 @@ def test_cli_main_trains_one_epoch_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--network", "resnet18"], "P8"), (["--clip_pool", "embedding"], "P8"),
-    (["--fixconvs"], "P8"),
-    (["--tp", "2"], "P7"), (["--head", "linear"], "P8"),
-    (["--network", "c3d"], "P8"), (["--remat"], "P8"),
+    (["--tp", "2"], "P7"),
     (["--debug_nans"], "P11"), (["--steps_per_call", "4"], "P11"),
     (["--save_samples"], "P11")])
 def test_cli_main_refuses_what_is_not_ported(flags, item, tmp_path,
@@ -612,6 +628,48 @@ def test_cli_main_refuses_what_is_not_ported(flags, item, tmp_path,
             str(tmp_path)]
     with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
         port_main.main(base + flags)
+
+
+class _Built(Exception):
+    """Raised in place of building the datasets: the flags got through."""
+
+
+@pytest.mark.parametrize("flags", [
+    ["--network", "resnet18"], ["--clip_pool", "embedding"], ["--fixconvs"],
+    ["--head", "linear"], ["--network", "c3d"], ["--remat"],
+    ["--remat", "convs"]])
+def test_cli_main_accepts_the_p8_flags(flags, tmp_path, monkeypatch):
+    """Each flag gets through the trainer's checks, and the model it asks
+    for is the JAX package's for the same flags: the same backbone, head,
+    dropout, clip pooling, frozen convs and remat, and the same tensors
+    under the bridge's names. Checked where the datasets would be built,
+    before any is."""
+    from zeroshotvideoclassification_tpu_torch.config import (
+        config_from_namespace,
+    )
+
+    def stop(config, wv_model):
+        raise _Built(config)
+
+    monkeypatch.setattr(port_main, "build_datasets", stop)
+    base = ["--dataset", "synthetic", "--device", "cpu", "--save_path",
+            str(tmp_path)]
+    with pytest.raises(_Built) as built:
+        port_main.main(base + flags)
+    config = built.value.args[0]
+    assert config == config_from_namespace(
+        port_main.build_arg_parser().parse_args(base + flags))
+    jm = jax_network(Config(**dataclasses.asdict(config)))
+    with torch.device("meta"):
+        pm = get_network(config)
+    assert pm.head == jm.head and pm.fixconvs == jm.fixconvs
+    assert pm.dropout_rate == pytest.approx(jm.dropout_rate)
+    assert pm.clip_pool == jm.clip_pool
+    assert getattr(pm.backbone, "remat", False) == getattr(jm.backbone,
+                                                           "remat", False)
+    got = {k: tuple(v.shape) for k, v in pm.state_dict().items()
+           if not k.endswith("num_batches_tracked")}
+    assert got == jax_leaf_shapes(jm)
 
 
 def test_cli_main_needs_a_gpu_unless_told_otherwise(tmp_path):

@@ -1,6 +1,7 @@
 """Helpers shared by the PyTorch port's tests and chip_smoke.py: seeded
 synthetic clips, random BN statistics for JAX trees, a bf16 ulp distance,
-seeded BatchNorm statistics and a seeded Adam state.
+seeded BatchNorm statistics, seeded C3D weights that carry the input and a
+seeded Adam state.
 Imports numpy and torch only."""
 
 from __future__ import annotations
@@ -105,6 +106,28 @@ def copy_bn(src: nn.Module, dst: nn.Module) -> nn.Module:
         for name in ("weight", "bias", "running_mean", "running_var"):
             getattr(b, name).copy_(getattr(a, name))
     return dst
+
+
+@torch.no_grad()
+def calibrate_c3d(model: nn.Module, seed: int) -> nn.Module:
+    """Give a C3D (models/c3d.C3D, or a ZeroShotModel holding one) seeded
+    weights under which the features depend on the clip, in place: conv
+    and fc6 weights N(0, 2 / fan_in) (He's), biases N(0, 0.01), from a CPU
+    generator seeded with `seed`. Under torch's default init (U(+-1 /
+    sqrt(fan_in)), which init_weights gives C3D) a conv + ReLU keeps about
+    a sixth of its input's second moment and adds its bias: after eight
+    layers the biases alone set the features, every clip gets nearly the
+    same embedding, and a comparison would hold nothing of the convs."""
+    g = torch.Generator().manual_seed(seed)
+    layers = [m for m in model.modules()
+              if isinstance(m, nn.Conv3d) and m.bias is not None]
+    layers.append(model.fc6)
+    for m in layers:
+        fan_in = m.weight[0].numel()
+        m.weight.copy_(torch.randn(m.weight.shape, generator=g)
+                       * (2.0 / fan_in) ** 0.5)
+        m.bias.copy_(torch.randn(m.bias.shape, generator=g) * 0.01)
+    return model
 
 
 @torch.no_grad()

@@ -10,7 +10,11 @@ class names + videos -> ranked predictions, one JSON line per video.
 
 The flags and the class-name embedding (add_class_and_model_args,
 resolve_classes, build_class_embeddings) are copies of the JAX CLI's, and the
-host pipeline is the port's own copy (data/pipeline.py). --weights takes a JAX
+host pipeline is the port's own copy (data/pipeline.py). --network and
+--head pick the model as the trainer does (models/heads.get_network: the
+VideoResNets, C3D, resnet18 = R3D-18 + the linear head); a caller's
+namespace may also carry clip_pool ('feature' when absent, as in the JAX
+CLI, which has no such flag). --weights takes a JAX
 npz checkpoint, loaded strictly; without one the model is a seeded random
 init. --device defaults to cuda; asking for cuda without a GPU raises.
 """
@@ -74,7 +78,8 @@ def load_model(config, weights: Optional[str], device):
 
     A JAX npz checkpoint is loaded strictly (train/checkpoint.py); without
     one the weights are a random init from a torch.Generator seeded with
-    INIT_SEED. Convs run in Config.compute_dtype, in channels-last-3d."""
+    INIT_SEED. Convs (C3D's biases with them) run in Config.compute_dtype,
+    in channels-last-3d; C3D's fc6 and the heads stay float32."""
     device = resolve_device(device)
     with torch.device("meta"):
         model = get_network(config)
@@ -141,7 +146,8 @@ def classify_videos(videos: Sequence[str], class_names: Sequence[str],
     config = Config(network=args.network, head=args.head, bs=args.bs,
                     clip_len=args.clip_len, size=args.size,
                     n_clips=args.n_clips, compute_dtype=args.compute_dtype,
-                    decode_scale=getattr(args, "decode_scale", 1))
+                    decode_scale=getattr(args, "decode_scale", 1),
+                    clip_pool=getattr(args, "clip_pool", "feature"))
     model, step = build_scoring_state(config, args.weights, device)
     class_embed_dev = torch.from_numpy(
         np.asarray(class_embed, np.float32)).to(device)

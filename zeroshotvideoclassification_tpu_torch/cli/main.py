@@ -26,18 +26,25 @@ moments and counters, the step count) and goes on at the epoch after the
 saved one in the checkpoint's directory; --resume auto takes the newest
 checkpoint of this run's name, or starts fresh where there is none.
 --weights PATH warm-starts (every tensor whose key and shape match, from
-an npz or a torchvision / reference .pth); without --nopretrained a
-<pretrained_dir>/<network>.{npz,pth,pth.tar} is loaded the same way.
+an npz, a torchvision / reference .pth or C3D's c3d.pickle); without
+--nopretrained a <pretrained_dir>/<network>.{npz,pth,pth.tar} (for C3D
+also ./assets/c3d.pickle) is loaded the same way.
 --evaluate evaluates --weights or the run's checkpoint.npz (strict on the
 weights and BN statistics) once. --profile_dir traces the first epoch with
 torch.profiler.
 
+Every model of the JAX package trains here (models/heads.get_network):
+--network r2plus1d_18 / r3d_18 / mc3_18 / c3d / resnet18 (R3D-18 with the
+linear head), --head mlp / linear, --clip_pool feature / embedding,
+--fixconvs, --remat [full|convs]. The linear and C3D heads' dropout draws
+its masks from a generator on the model's device, seeded per epoch with
+(seed << 16) + epoch.
+
 The flags are the JAX trainer's (config.build_arg_parser, the same Config)
 plus --device, which defaults to cuda; asking for cuda without a GPU raises.
 What the port does not do yet raises NotImplementedError, naming its
-ROADMAP item, before any dataset is built: --tp > 1 (P7), --network
-resnet18 / c3d, --head linear, --clip_pool embedding, --fixconvs, --remat
-(P8), and --steps_per_call > 1 / --save_samples / --debug_nans (P11).
+ROADMAP item, before any dataset is built: --tp > 1 (P7), and
+--steps_per_call > 1 / --save_samples / --debug_nans (P11).
 """
 
 from __future__ import annotations
@@ -96,14 +103,6 @@ def check_ported(config: Config) -> None:
     yet, naming the ROADMAP item that will."""
     asked = [
         (config.tp > 1, "--tp > 1", "P7"),
-        ("c3d" in config.network, f"--network {config.network}", "P8"),
-        # the JAX package routes it to r3d_18 + the linear head
-        (config.network == "resnet18", "--network resnet18", "P8"),
-        (config.head != "mlp", f"--head {config.head}", "P8"),
-        (str(config.clip_pool) != "feature",
-         f"--clip_pool {config.clip_pool}", "P8"),
-        (config.fixconvs, "--fixconvs", "P8"),
-        (config.remat, "--remat", "P8"),
         (config.steps_per_call > 1, "--steps_per_call > 1", "P11"),
         (config.save_samples, "--save_samples", "P11"),
         (config.debug_nans, "--debug_nans", "P11"),
@@ -259,12 +258,16 @@ class Experiment:
     # -------------------------------------------------------- pretrained ----
     def _warm_start_pretrained(self) -> None:
         """Without --nopretrained, load <pretrained_dir>/<network>.npz,
-        .pth or .pth.tar (the first that exists) as a warm start: the
-        counterpart of the reference's pretrained=True torchvision
-        constructors (reference/resnet.py:284-362)."""
+        .pth or .pth.tar, or for C3D ./assets/c3d.pickle (the first that
+        exists) as a warm start: the counterpart of the reference's
+        pretrained=True torchvision constructors (reference/resnet.py:
+        284-362) and of its C3D load (network.py:129-130)."""
         cfg = self.config
-        for ext in ("npz", "pth", "pth.tar"):
-            path = os.path.join(cfg.pretrained_dir, f"{cfg.network}.{ext}")
+        candidates = [os.path.join(cfg.pretrained_dir, f"{cfg.network}.{ext}")
+                      for ext in ("npz", "pth", "pth.tar")]
+        if "c3d" in cfg.network:
+            candidates.append("./assets/c3d.pickle")  # the reference's path
+        for path in candidates:
             if os.path.exists(path):
                 n = warm_start(path, self.model)
                 print(f"PRETRAINED: loaded {n} tensors from {path}")
@@ -285,7 +288,9 @@ class Experiment:
 
         batch_t, model_t = Timer(), Timer()
         losses, accs = [], []
-        rng = torch.Generator().manual_seed((cfg.seed << 16) + epoch)
+        # dropout's masks are drawn where the model is
+        rng = torch.Generator(self.device).manual_seed(
+            (cfg.seed << 16) + epoch)
         it = iter(pipe)
         if cfg.progressbar:
             try:

@@ -1,6 +1,7 @@
-"""Model layer: video ResNets and the zero-shot head as nn.Modules, and the
-weight bridge to and from the JAX package's pytrees."""
+"""Model layer: video ResNets, C3D and the zero-shot heads as nn.Modules,
+and the weight bridge to and from the JAX package's pytrees."""
 
+from zeroshotvideoclassification_tpu_torch.models.c3d import C3D
 from zeroshotvideoclassification_tpu_torch.models.heads import (
     ZeroShotModel,
     get_network,

@@ -9,8 +9,13 @@ checkpoint stores them) into a state_dict for models.heads.ZeroShotModel:
   BN             scale/bias/mean/var -> weight/bias/running_mean/running_var
                  (+ num_batches_tracked = 0, which JAX does not keep)
 
-It is the inverse of zeroshotvideoclassification_tpu/models/porting.py:
-_port_reference_sd: from_jax then _port_reference_sd gives back the trees.
+The keys are the reference's, as porting.py reads them: a VideoResNet
+under `model.`, C3D's conv1 ... conv5b and fc6 (weights and biases) at the
+top level, the heads as `output2emb_proj.layers.{0,1}` or `regressor`. fc6
+crosses as a plain transpose: both packages flatten its input in NCDHW
+order. It is the inverse of zeroshotvideoclassification_tpu/models/
+porting.py:_port_reference_sd: from_jax then _port_reference_sd gives back
+the trees.
 to_jax(state_dict) is the way back, (params, model_state) as nested dicts of
 numpy arrays, so that parameters and BN statistics after some training steps
 can be compared leaf by leaf. adam_from_jax / adam_to_jax carry Adam's
@@ -19,7 +24,6 @@ step of train/optimizer.GuardedAdam), in the same layouts as the parameters.
 conv_weight_from_jax / conv_weight_to_jax carry one conv weight across, e.g.
 the temporal conv op's (ops/temporal_conv.temporal_conv3 takes the JAX
 layout [3, 1, 1, Ci, Co]; a Conv3d holds [Co, Ci, 3, 1, 1]).
-Only numpy and torch are needed.
 """
 
 from __future__ import annotations
@@ -29,6 +33,8 @@ from typing import Dict
 
 import numpy as np
 import torch
+
+from zeroshotvideoclassification_tpu_torch.models.c3d import CONVS
 
 # JAX stem sub-tree -> torchvision stem index
 _STEM = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
@@ -40,7 +46,10 @@ _BLOCK = {
 for _c in ("conv1", "conv2"):
     _BLOCK.update({f"{_c}/conv": f"{_c}.0", f"{_c}/conv_s": f"{_c}.0.0",
                    f"{_c}/bn_m": f"{_c}.0.1", f"{_c}/conv_t": f"{_c}.0.3"})
-_HEAD = {"fc1": "output2emb_proj.layers.0", "fc2": "output2emb_proj.layers.1"}
+_HEAD = {"fc1": "output2emb_proj.layers.0", "fc2": "output2emb_proj.layers.1",
+         "regressor": "regressor"}
+# C3D's layers, the same names in both packages
+_C3D = tuple(name for name, _, _ in CONVS) + ("fc6",)
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 
@@ -66,6 +75,8 @@ def torch_key(path: str) -> str:
         if parts[0] == "head":
             return f"{_HEAD[parts[1]]}.{leaf}"
         if parts[0] == "backbone":
+            if parts[1] in _C3D and len(parts) == 3:
+                return f"{parts[1]}.{leaf}"
             if parts[1] == "stem":
                 return f"model.stem.{_STEM[parts[2]]}.{leaf}"
             layer, block = parts[1].split("_")
@@ -74,7 +85,8 @@ def torch_key(path: str) -> str:
     except (KeyError, IndexError, ValueError):
         pass
     raise ValueError(f"no counterpart in the port for JAX leaf {path!r} "
-                     f"(ported: r2plus1d_18/r3d_18/mc3_18 + the mlp head)")
+                     f"(ported: r2plus1d_18/r3d_18/mc3_18/c3d + the mlp, "
+                     f"linear and c3d heads)")
 
 
 def conv_weight_from_jax(w) -> torch.Tensor:
@@ -139,8 +151,12 @@ def jax_path(key: str):
     if leaf == "num_batches_tracked":
         return None
     try:
+        wb = {"weight": "w", "bias": "b"}[leaf] if leaf in (
+            "weight", "bias") else None
         if mod in _HEAD_INV:
-            return "params", f"head/{_HEAD_INV[mod]}/{'w' if leaf == 'weight' else 'b'}"
+            return "params", f"head/{_HEAD_INV[mod]}/{wb}"
+        if mod in _C3D and wb:
+            return "params", f"backbone/{mod}/{wb}"
         parts = mod.split(".")
         if parts[0] == "model":
             if parts[1] == "stem":
@@ -205,9 +221,11 @@ def adam_to_jax(model, optimizer):
     optax.adam's init), and its step count."""
     named = dict(model.named_parameters())
 
+    def moment(p, slot):  # zeros where Adam never stepped (--fixconvs)
+        t = optimizer.state.get(p, {}).get(slot)
+        return torch.zeros_like(p) if t is None else t
+
     def moments(slot):
-        return to_jax({k: (optimizer.state[p][slot] if p in optimizer.state
-                           else torch.zeros_like(p))
-                       for k, p in named.items()})[0]
+        return to_jax({k: moment(p, slot) for k, p in named.items()})[0]
 
     return moments("exp_avg"), moments("exp_avg_sq"), int(optimizer.count)

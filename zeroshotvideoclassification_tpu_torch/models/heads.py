@@ -1,30 +1,49 @@
-"""The zero-shot model: a video backbone + the 'mlp' embedding head.
+"""The zero-shot model: a video backbone + an embedding head.
 
-Counterpart of zeroshotvideoclassification_tpu/models/heads.py for the
-'mlp' head with clip_pool='feature': the clip-mean of the pooled backbone
-features -> Linear(512, 512) -> ReLU -> Linear(512, 300) -> L2 normalize,
-all in float32. Key names follow the reference fork (network.py:481,517):
-the backbone under `model.`, the head under `output2emb_proj.layers.{0,1}`,
-so a reference checkpoint and the bridge from JAX pytrees line up with
-state_dict() key for key. The 'linear' and C3D heads, clip_pool='embedding',
-fixconvs and dropout are not ported yet (dropout is 0 on the ported
-paths).
+Counterpart of zeroshotvideoclassification_tpu/models/heads.py, all heads
+in float32:
+
+  * 'mlp'    the fork's head: clip-mean of the pooled backbone features ->
+             Linear(512, 512) -> ReLU -> Linear(512, 300) -> L2 normalize;
+  * 'linear' the paper's head: clip-mean -> dropout 0.05 -> Linear(512,
+             300) -> L2 normalize;
+  * 'c3d'    relu(fc6) -> dropout 0.10 BEFORE the clip-mean ->
+             Linear(4096, 300) -> L2 normalize (the C3D backbone's own).
+
+clip_pool='embedding' runs the head on every clip, L2-normalizes, takes the
+mean over clips and normalizes again (the C3D head ignores it; identical to
+'feature' at one clip). fixconvs stops the gradient at the backbone's
+pooled features (torch's requires_grad=False on the backbone, the JAX
+package's stop_gradient): the backbone runs without autograd, its BN
+running statistics still move in train mode. Dropout draws its mask from
+the generator forward() is given (none: no dropout).
+
+Key names follow the reference (network.py:50-180, :481, :517): a
+VideoResNet under `model.`, the mlp head under
+`output2emb_proj.layers.{0,1}`, the linear and C3D heads as `regressor`,
+and C3D's layers (conv1 ... conv5b, fc6) at the TOP level, beside
+`regressor`. So a reference checkpoint, c3d.pickle and the bridge from the
+JAX package's pytrees line up with state_dict() key for key.
 """
 
 from __future__ import annotations
+
+import sys
+from typing import Optional
 
 import torch
 from torch import nn
 
 from zeroshotvideoclassification_tpu_torch.models import layers as L
+from zeroshotvideoclassification_tpu_torch.models.c3d import C3D
 from zeroshotvideoclassification_tpu_torch.models.resnet3d import (
-    VideoResNet,
     mc3_18,
     r2plus1d_18,
     r3d_18,
 )
 
 EMBED_DIM = 300
+HEADS = ("mlp", "linear", "c3d")
 
 
 class MLP(nn.Module):
@@ -39,57 +58,115 @@ class MLP(nn.Module):
 
 
 class ZeroShotModel(nn.Module):
-    """forward(x [B, nc, T, H, W, 3]) -> unit embeddings [B, 300] float32."""
+    """forward(x [B, nc, T, H, W, 3], generator=None) -> unit embeddings
+    [B, 300] float32."""
 
-    def __init__(self, backbone: VideoResNet):
+    def __init__(self, backbone: nn.Module, head: str = "mlp",
+                 fixconvs: bool = False, dropout_rate: float = 0.0,
+                 clip_pool: str = "feature"):
         super().__init__()
-        self.model = backbone
-        self.output2emb_proj = MLP((backbone.feature_dim,
-                                    backbone.feature_dim, EMBED_DIM))
+        if head not in HEADS:
+            raise ValueError(f"unknown head {head!r}")
+        if isinstance(backbone, C3D):
+            # the reference's layout: C3D's layers at the top level. They
+            # are registered here; the backbone object keeps the same
+            # modules and runs them
+            for name, layer in backbone.named_children():
+                self.add_module(name, layer)
+            self.__dict__["_c3d"] = backbone
+        else:
+            self.model = backbone
+        f = backbone.feature_dim
+        if head == "mlp":
+            self.output2emb_proj = MLP((f, f, EMBED_DIM))
+        else:
+            self.regressor = nn.Linear(f, EMBED_DIM)
+        self.head = head
+        self.fixconvs = bool(fixconvs)
+        self.dropout_rate = float(dropout_rate)
+        self.clip_pool = str(clip_pool)
         self.compute_dtype = torch.float32
+
+    @property
+    def backbone(self) -> nn.Module:
+        return self.__dict__.get("_c3d") or self.model
 
     def set_compute_dtype(self, dtype: torch.dtype,
                           masters: bool = False) -> "ZeroShotModel":
-        """Convs (weights and input) run in `dtype`; BN parameters, the head
-        and every reduction stay float32 — the JAX package's casts.
+        """Convs (weights, C3D's biases and the input) run in `dtype`; BN
+        parameters, C3D's fc6, the head and every reduction stay float32 —
+        the JAX package's casts.
 
         Serving (masters=False) casts the conv weights once, in place.
         Training (masters=True) keeps them float32 and each conv casts a
         copy at every call (layers.Conv3d), so gradients and optimizer
         state are float32 (the JAX package's params, layers.py:66-67)."""
-        for m in self.model.modules():
+        for m in self.backbone.modules():
             if isinstance(m, L.Conv3d):
                 m.compute_dtype = dtype if masters else None
                 m.to(torch.float32 if masters else dtype)
         self.compute_dtype = dtype
         return self
 
-    def forward(self, x):
+    def forward(self, x, generator: Optional[torch.Generator] = None):
         b, nc = x.shape[0], x.shape[1]
         # [B*nc, T, H, W, 3] viewed as [B*nc, 3, T, H, W]: channels-last-3d
-        # memory, so the stem reads it without a copy
+        # memory, so the first conv reads it without a copy
         x = x.reshape(b * nc, *x.shape[2:]).permute(0, 4, 1, 2, 3)
-        pooled = self.model(x.to(self.compute_dtype))
-        feats = pooled.reshape(b, nc, -1).mean(dim=1)
-        return L.l2_normalize(self.output2emb_proj(feats))
+        with torch.set_grad_enabled(torch.is_grad_enabled()
+                                    and not self.fixconvs):
+            pooled = self.backbone(x.to(self.compute_dtype))
+        if self.head == "c3d":
+            feats = L.dropout(pooled, self.dropout_rate, generator,
+                              self.training)
+            emb = L.linear(feats.reshape(b, nc, -1).mean(dim=1),
+                           self.regressor)
+            return L.l2_normalize(emb)
+        per_clip = self.clip_pool == "embedding"
+        feats = pooled if per_clip else pooled.reshape(b, nc, -1).mean(dim=1)
+        if self.head == "linear":
+            feats = L.dropout(feats, self.dropout_rate, generator,
+                              self.training)
+            emb = L.linear(feats, self.regressor)
+        else:
+            emb = self.output2emb_proj(feats)
+        if per_clip:
+            emb = L.l2_normalize(emb).reshape(b, nc, -1).mean(dim=1)
+        return L.l2_normalize(emb)
 
 
 def get_network(config) -> ZeroShotModel:
-    """Backbone routing of the JAX get_network (substring match on
-    Config.network) for the ported backbones and head."""
+    """Backbone and head routing of the JAX get_network: substring match on
+    Config.network ('c3d', '2plus1d', 'mc3', 'r3d', then 'resnet18' -> an
+    R3D-18 with the linear head); C3D takes its own head and dropout 0.10,
+    the linear head dropout 0.05. --remat ('none' / False mean off) applies
+    to the VideoResNets; on C3D it changes nothing and says so on stderr."""
     name = config.network
-    if "2plus1d" in name:
-        backbone = r2plus1d_18()
-    elif "mc3" in name:
-        backbone = mc3_18()
-    elif "r3d" in name:
-        backbone = r3d_18()
-    else:
-        raise ValueError(f"network {name!r} is not ported (r2plus1d_18, "
-                         f"r3d_18, mc3_18)")
     head = getattr(config, "head", "mlp")
-    clip_pool = str(getattr(config, "clip_pool", "feature"))
-    if head != "mlp" or clip_pool != "feature":
-        raise ValueError(f"head {head!r} / clip_pool {clip_pool!r} is not "
-                         f"ported (mlp / feature)")
-    return ZeroShotModel(backbone)
+    dropout = 0.0
+    remat = getattr(config, "remat", False)
+    if str(remat) in ("False", "none", ""):
+        remat = False  # before branching: 'none' is truthy
+    mode = ("convs" if remat == "convs" else "full") if remat else False
+    if "c3d" in name:
+        backbone, head, dropout = C3D(), "c3d", 0.10
+        if remat:
+            print(f"WARNING: --remat {remat} has no effect on {name!r} "
+                  f"(only the VideoResNet backbones rematerialize)",
+                  file=sys.stderr)
+    elif "2plus1d" in name:
+        backbone = r2plus1d_18(mode)
+    elif "mc3" in name:
+        backbone = mc3_18(mode)
+    elif "r3d" in name:
+        backbone = r3d_18(mode)
+    elif "resnet18" in name:
+        backbone, head = r3d_18(mode), "linear"
+    else:
+        raise ValueError(f"Network {name!r} not available!")
+    if head == "linear":
+        dropout = 0.05
+    return ZeroShotModel(
+        backbone, head, fixconvs=bool(getattr(config, "fixconvs", False)),
+        dropout_rate=dropout,
+        clip_pool=str(getattr(config, "clip_pool", "feature")))

@@ -1,5 +1,5 @@
 """Building blocks: conv3d, BatchNorm (batch or running statistics) with the
-fused epilogue, float32 linear and pooling.
+fused epilogue, float32 linear, pooling and dropout.
 
 Counterpart of zeroshotvideoclassification_tpu/models/layers.py. The JAX
 package keeps activations as [N, T, H, W, C] arrays; here they are
@@ -7,26 +7,35 @@ package keeps activations as [N, T, H, W, C] arrays; here they are
 so cuDNN convolves them as XLA did and the BN epilogue (K2) sees a
 contiguous [N, T, H, W, C] view.
 
-  * conv3d: a bias-free Conv3d; weights are OIDHW (torch's layout; the
-    bridge transposes the JAX package's DHWIO). With `compute_dtype` set,
-    the float32 weight (the master) and the input are cast at every call,
-    as layers.py:66-67, so gradients and optimizer state stay float32.
+  * Conv3d: weights are OIDHW (torch's layout; the bridge transposes the
+    JAX package's DHWIO). With `compute_dtype` set, the float32 weight (the
+    master) and the input are cast at every call, as layers.py:66-67, so
+    gradients and optimizer state stay float32; a bias (C3D's) is added
+    after the conv in that dtype, as layers.py:118-119.
   * BatchNorm3d: its forward is batchnorm_relu, the single entry point of
     every epilogue, like layers.py:248-287. In train mode the statistics
     are bn_statistics (layers.py:199-225: one pass, shifted by the running
     mean, in float32, through autograd) and the running statistics move; in
     eval mode they are the running statistics. Either way the apply is K2
     (ops/bn_cuda.bn_apply_relu) with mean and var as differentiable inputs.
+    Inside `recomputing()` (a rematerialised block's second forward,
+    models/resnet3d.py) train mode normalises as before but leaves the
+    running statistics alone: they move once a step, as the JAX package's
+    functional state does under jax.checkpoint.
   * linear, global_avgpool and l2_normalize compute in float32
-    (layers.py:292-336).
+    (layers.py:292-336); maxpool3d is torch's MaxPool3d (padding counts as
+    -inf, layers.py:301-319); dropout is layers.py:339-344.
 """
 
 from __future__ import annotations
 
+import contextlib
 import math
+import threading
 from typing import Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import bn_apply_relu
@@ -43,12 +52,30 @@ class Conv3d(nn.Conv3d):
         dt = self.compute_dtype
         if dt is None or dt == self.weight.dtype:
             return super().forward(x)
-        return self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        y = self._conv_forward(x.to(dt), self.weight.to(dt), None)
+        return y if self.bias is None else y + self.bias.to(dt).view(
+            -1, 1, 1, 1)
 
 
-def conv3d(cin: int, cout: int, kernel, stride=1, padding=0) -> Conv3d:
+def conv3d(cin: int, cout: int, kernel, stride=1, padding=0,
+           bias: bool = False) -> Conv3d:
     return Conv3d(cin, cout, kernel, stride=stride, padding=padding,
-                  bias=False)
+                  bias=bias)
+
+
+_remat = threading.local()
+
+
+@contextlib.contextmanager
+def recomputing():
+    """Marks a rematerialised forward on this thread: BatchNorm3d leaves
+    its running statistics as the first forward left them."""
+    before = getattr(_remat, "on", False)
+    _remat.on = True
+    try:
+        yield
+    finally:
+        _remat.on = before
 
 
 def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
@@ -104,10 +131,11 @@ class BatchNorm3d(nn.BatchNorm3d):
         mean, var, new_mean, new_var = bn_statistics(
             x.permute(to_last), self.running_mean, self.running_var,
             self.momentum)
-        with torch.no_grad():  # after bn_statistics has read running_mean
-            self.running_mean.copy_(new_mean)
-            self.running_var.copy_(new_var)
-            self.num_batches_tracked += 1
+        if not getattr(_remat, "on", False):
+            with torch.no_grad():  # after bn_statistics read running_mean
+                self.running_mean.copy_(new_mean)
+                self.running_var.copy_(new_var)
+                self.num_batches_tracked += 1
         return batchnorm_relu(x, self.weight, self.bias, mean, var, residual,
                               relu, self.eps)
 
@@ -133,6 +161,24 @@ def linear(x: torch.Tensor, layer: nn.Linear) -> torch.Tensor:
     return torch.matmul(x.float(), layer.weight.t()) + layer.bias
 
 
+def maxpool3d(x: torch.Tensor, window, stride, padding=0) -> torch.Tensor:
+    """torch MaxPool3d on [N, C, T, H, W]: padded positions never win."""
+    return F.max_pool3d(x, window, stride, padding)
+
+
+def dropout(x: torch.Tensor, rate: float,
+            generator: Optional[torch.Generator], train: bool) -> torch.Tensor:
+    """Inverted dropout as the JAX package's: keep each entry with
+    probability 1 - rate (a mask drawn from `generator`, which lives on
+    x's device) as x / (1 - rate), else 0, in x's dtype; the identity in
+    eval mode, at rate 0 or without a generator."""
+    if not train or rate == 0.0 or generator is None:
+        return x
+    keep = 1.0 - rate
+    mask = torch.rand(x.shape, generator=generator, device=x.device) < keep
+    return torch.where(mask, x / keep, 0.0).to(x.dtype)
+
+
 def global_avgpool(x: torch.Tensor) -> torch.Tensor:
     """[N, C, T, H, W] -> [N, C] float32 (AdaptiveAvgPool3d(1) + flatten)."""
     return x.float().mean(dim=(2, 3, 4))
@@ -149,10 +195,16 @@ def l2_normalize(x: torch.Tensor, eps: float = 1e-12) -> torch.Tensor:
 def init_weights(module: nn.Module, generator: torch.Generator) -> None:
     """Seeded init with the JAX package's rules (layers.py:28-48): convs
     kaiming normal (fan_out, relu gain), BN scale 1 / bias 0 with running
-    mean 0 / var 1, linears U(+-1/sqrt(fan_in)) for weight and bias.
-    Parameters must be on the generator's device."""
+    mean 0 / var 1, linears U(+-1/sqrt(fan_in)) for weight and bias; a
+    biased conv (C3D's) takes torch's default, U(+-1/sqrt(fan_in)) for
+    weight and bias (c3d.py:37-49). Parameters must be on the generator's
+    device."""
     for m in module.modules():
-        if isinstance(m, nn.Conv3d):
+        if isinstance(m, nn.Conv3d) and m.bias is not None:
+            bound = 1.0 / math.sqrt(m.in_channels * math.prod(m.kernel_size))
+            m.weight.uniform_(-bound, bound, generator=generator)
+            m.bias.uniform_(-bound, bound, generator=generator)
+        elif isinstance(m, nn.Conv3d):
             fan_out = m.out_channels * math.prod(m.kernel_size)
             m.weight.normal_(0.0, math.sqrt(2.0 / fan_out),
                              generator=generator)

@@ -11,13 +11,26 @@ stem.{0,1,3,4}, layerN.B.conv1.0.{0,1,3}, conv1.1, conv2.*, downsample.{0,1}
 Input [N, 3, T, H, W] in channels-last-3d memory; forward returns the
 global-average-pooled features [N, 512] in float32 (the classifier fc is
 never created, as in the JAX package).
+
+`remat` rematerialises the blocks (not the stem), as resnet3d.py:200-252:
+"full" keeps only each block's input for the backward and runs the block
+again there (torch.utils.checkpoint, non-reentrant); "convs" keeps the
+conv outputs and recomputes only the BN / ReLU chains between them (a
+selective policy: the counterpart of save_only_these_names("conv_out")).
+Either way the second forward runs inside layers.recomputing(), so the BN
+running statistics move once a step. K2 keeps its tensors through
+ctx.save_for_backward and needs nothing more.
 """
 
 from __future__ import annotations
 
+import contextlib
+import functools
 from typing import Sequence
 
+import torch
 from torch import nn
+from torch.utils import checkpoint as ckpt
 
 from zeroshotvideoclassification_tpu_torch.models import layers as L
 
@@ -83,12 +96,40 @@ def _stem(kind: str):
         L.BatchNorm3d(64), nn.ReLU(inplace=True))
 
 
+REMATS = (False, "full", "convs")
+_CONV_OPS = {torch.ops.aten.convolution.default}
+
+
+def _save_conv_outputs(ctx, op, *args, **kwargs):
+    return (ckpt.CheckpointPolicy.MUST_SAVE if op in _CONV_OPS
+            else ckpt.CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+@contextlib.contextmanager
+def _recompute(inner):
+    with inner, L.recomputing():
+        yield
+
+
+def _remat_contexts(policy: str):
+    """checkpoint's context_fn: (first forward, recomputation) contexts."""
+    if policy == "convs":
+        first, again = ckpt.create_selective_checkpoint_contexts(
+            _save_conv_outputs)
+    else:
+        first, again = contextlib.nullcontext(), contextlib.nullcontext()
+    return first, _recompute(again)
+
+
 class VideoResNet(nn.Module):
     feature_dim = 512
 
     def __init__(self, conv_makers: Sequence[str], stem: str,
-                 layers: Sequence[int] = (2, 2, 2, 2)):
+                 layers: Sequence[int] = (2, 2, 2, 2), remat=False):
         super().__init__()
+        if remat not in REMATS:
+            raise ValueError(f"remat {remat!r}: one of {REMATS}")
+        self.remat = remat
         self.stem = _stem(stem)
         inplanes = 64
         for si, ((planes, stride), nblocks, kind) in enumerate(
@@ -102,18 +143,27 @@ class VideoResNet(nn.Module):
 
     def forward(self, x):
         x = self.stem(x)
+        remat = self.remat and torch.is_grad_enabled()
+        context_fn = functools.partial(_remat_contexts, self.remat)
         for name in ("layer1", "layer2", "layer3", "layer4"):
-            x = getattr(self, name)(x)
+            for block in getattr(self, name):
+                if remat:
+                    x = ckpt.checkpoint(block, x, use_reentrant=False,
+                                        preserve_rng_state=False,
+                                        context_fn=context_fn)
+                else:
+                    x = block(x)
         return L.global_avgpool(x)
 
 
-def r3d_18() -> VideoResNet:
-    return VideoResNet((SIMPLE,) * 4, stem="basic")
+def r3d_18(remat=False) -> VideoResNet:
+    return VideoResNet((SIMPLE,) * 4, stem="basic", remat=remat)
 
 
-def mc3_18() -> VideoResNet:
-    return VideoResNet((SIMPLE,) + (NO_TEMPORAL,) * 3, stem="basic")
+def mc3_18(remat=False) -> VideoResNet:
+    return VideoResNet((SIMPLE,) + (NO_TEMPORAL,) * 3, stem="basic",
+                       remat=remat)
 
 
-def r2plus1d_18() -> VideoResNet:
-    return VideoResNet((TWO_PLUS_ONE,) * 4, stem="r2plus1d")
+def r2plus1d_18(remat=False) -> VideoResNet:
+    return VideoResNet((TWO_PLUS_ONE,) * 4, stem="r2plus1d", remat=remat)

@@ -65,6 +65,7 @@ class InferenceEngine:
         top_k: int = 5,
         decode_scale: int = 1,
         device="cuda",
+        clip_pool: str = "feature",
     ):
         self.device = resolve_device(device)
         self.class_names = list(class_names)
@@ -79,10 +80,11 @@ class InferenceEngine:
         self.batch_buckets = sorted(
             {b for b in (8, 16, 32, 64) if b < max_batch} | {max_batch})
         self.bucket_dispatches = {b: 0 for b in self.batch_buckets}
+        # network, head and clip_pool pick the model (models.get_network)
         self.config = Config(network=network, head=head, bs=max_batch,
                              clip_len=clip_len, size=size, n_clips=n_clips,
                              compute_dtype=compute_dtype,
-                             decode_scale=decode_scale)
+                             decode_scale=decode_scale, clip_pool=clip_pool)
         model, self.eval_step = build_scoring_state(self.config, weights,
                                                     self.device)
         # ONE attribute holds (weights_path, model) so a concurrent reload()

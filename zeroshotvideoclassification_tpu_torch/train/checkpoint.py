@@ -286,14 +286,17 @@ def _restore_optimizer(model, optimizer, flat) -> None:
 
 
 def _torch_source(path: str) -> Dict[str, torch.Tensor]:
-    """A .pth / .pth.tar file -> {port state_dict key: tensor}: a
-    torchvision video-resnet state_dict (backbone keys, which the port
-    holds under `model.`; the classifier `fc.*` skipped, as the JAX
-    package's models/porting.py does), or the reference fork's
+    """A .pth / .pth.tar / .pickle file -> {port state_dict key: tensor},
+    its kind told from its keys as the JAX package's
+    porting.detect_source_kind does: the reference fork's
     checkpoint.pth.tar ({'state_dict', 'opt', 'accuracy'} with DataParallel
-    `module.` prefixes; its keys are the port's already). Read with
+    `module.` prefixes; its keys are the port's already), C3D's c3d.pickle
+    (DavideA/c3d-pytorch: conv1 ... fc8 at the top level, the port's C3D
+    keys; fc7 and fc8, which the reference's forward bypasses, skipped), or
+    a torchvision video-resnet state_dict (backbone keys, which the port
+    holds under `model.`; the classifier `fc.*` skipped). Read with
     torch.load(weights_only=True), which admits the argparse Namespace the
-    reference stores beside the weights."""
+    reference stores beside the weights and refuses any other object."""
     import argparse
 
     with torch.serialization.safe_globals([argparse.Namespace]):
@@ -306,6 +309,9 @@ def _torch_source(path: str) -> Dict[str, torch.Tensor]:
                                   "regressor.")) for k in sd)
     if reference:
         return sd
+    if "conv5b.weight" in sd or ("conv1.weight" in sd and "fc6.weight" in sd):
+        return {k: v for k, v in sd.items()
+                if not k.startswith(("fc7.", "fc8."))}
     return {f"model.{k}": v for k, v in sd.items()
             if not k.startswith("fc.")}
 
@@ -314,14 +320,12 @@ def warm_start(path: str, model: nn.Module) -> int:
     """Non-strict partial load (--weights, the reference's main.py:114-124:
     intersect keys, update, keep the rest): every tensor of the file whose
     key and shape the model has, BN running statistics included, from a
-    checkpoint npz of either package or a torch source (.pth / .pth.tar:
-    torchvision video-resnet weights or the reference fork's checkpoint).
-    -> the number of tensors loaded (num_batches_tracked, which the JAX
-    package does not keep, is neither loaded nor counted)."""
-    if path.endswith((".pickle", ".pkl")):
-        raise NotImplementedError(
-            f"{path}: C3D's pickled weights are not ported yet (ROADMAP P8)")
-    if path.endswith((".pth", ".pth.tar")):
+    checkpoint npz of either package or a torch source (.pth / .pth.tar /
+    .pickle: torchvision video-resnet weights, the reference fork's
+    checkpoint, or C3D's c3d.pickle). -> the number of tensors loaded
+    (num_batches_tracked, which the JAX package does not keep, is neither
+    loaded nor counted)."""
+    if path.endswith((".pth", ".pth.tar", ".pickle", ".pkl")):
         sd = _torch_source(path)
     else:
         params, model_state, _ = read_checkpoint(path)

@@ -46,10 +46,13 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     W, 3] (normalized floats), z [B, 300], labels [B] int32, weight [B]
     (1 valid / 0 broken-or-pad), class_embed [C, 300]. metrics = {"loss",
     "train_accuracy"}, 0-dim tensors on the model's device. `rng` (a
-    torch.Generator) is for dropout, which is 0 on the ported paths.
+    torch.Generator on the model's device) draws the dropout masks of the
+    linear and C3D heads; without one they drop nothing.
 
     The convs run in `compute_dtype` on casts of their float32 weights, so
-    gradients and the optimizer's moments are float32."""
+    gradients and the optimizer's moments are float32. Under --fixconvs
+    the backbone's parameters get no gradient, and the optimizer leaves
+    them (and their moments) as they are."""
     model.set_compute_dtype(compute_dtype, masters=True)
     state = TrainState(model, optimizer)
 
@@ -58,7 +61,7 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         model.train()
         optimizer.zero_grad(set_to_none=True)
         with torch.enable_grad():  # whatever mode the caller is in
-            emb = model(x)
+            emb = model(x, generator=rng)
             loss = masked_mse(emb, z, weight)
         loss.backward()
         optimizer.step()
