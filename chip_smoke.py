@@ -1,9 +1,10 @@
 #!/usr/bin/env python3
 """On-card smoke run of the PyTorch/CUDA port: its serving path, its video
 training path, its still-image (SUN) training path with the zero-shot
-evaluation, the temporal conv op, and the other models and options of the
+evaluation, the temporal conv op, the other models and options of the
 trainer: C3D (trained and served), resnet18 (R3D-18 + the linear head),
---remat full / convs and --fixconvs (one GPU).
+--remat full / convs and --fixconvs, and data-parallel training across
+processes (one GPU, or two where the host shows two).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -121,13 +122,34 @@ result line) if it fails:
      plain one from the same init and batch (loss rtol 1e-4, BN running
      statistics moved once);
  15. one --fixconvs step: 37 K2 forward, no K2 backward, one K1; the
-     backbone's parameters bit-equal, the head's moved.
+     backbone's parameters bit-equal, the head's moved;
+ 16. a process group of one under NCCL (r2plus1d_18, 16 clips of
+     16x112x112): two float32 steps against the same steps without a group
+     (loss rtol 1e-4, parameters atol 2e-5; bit for bit reported), the
+     bf16 step timed with and without the group (3 steps after 2), its
+     launches (one K1, 37 / 37 a step) and one step's collectives in a
+     torch.profiler trace (NCCL kernels, all-reduce calls); before it, K1
+     and K2 forward and backward against their plain versions at the
+     8-clip shapes of a process of phases 17 and 18;
+ 17. two spawned processes of 8 clips each (NCCL on cuda:0 and cuda:1 where
+     the host shows two GPUs, else gloo with both on cuda:0: NCCL refuses
+     two processes on one device): two float32 steps against phase 16's
+     one process on the 16 clips (loss rtol 1e-4, parameters atol 2e-5),
+     parameters bit-equal across the processes, launches a process one K1
+     and 37 / 37 a step, the bf16 step's time (on one GPU a correctness
+     figure, not a scaling one);
+ 18. cli.main on two such processes: one epoch of 2 steps of 16 clips
+     with the evaluation and --checkpoint_every 1; both report the same
+     metrics, process 1 opens no file to write under the save path, and a
+     one-process --evaluate of process 0's checkpoint gives its test
+     accuracy.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
 each main path that launches it ("path": "serve", "train", "train_sun",
 "train_c3d", "serve_c3d", "train_r3d_linear", "train_remat_full",
-"train_remat_convs" or "train_fixconvs"; "op" for K3, which is driven
-through its public op): its launches
+"train_remat_convs", "train_fixconvs", "train_dp_world1", "train_dp_2rank"
+or "cli_dp_2rank", the last two counted in process 0; "op" for K3, which
+is driven through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
@@ -611,12 +633,13 @@ def k2_bwd_library(x, dy, stats, dx):
         return {"library_error": str(e).splitlines()[0]}
 
 
-def phase_k2_bwd(calls, dev, copy_gbs, key=""):
+def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS):
     """K2 backward, and the K2 forward that feeds it, at every epilogue
-    shape of one 16-clip train step (of r2plus1d_18 unless the epilogue
-    `calls` are another model's; `key` names that model in the record and
-    the lines). Beside K2 backward at the epilogues without residual and
-    ReLU, k2_bwd_library. -> (backward's record, forward's)."""
+    shape of one train step of `clips` clips (of r2plus1d_18 unless the
+    epilogue `calls` are another model's; `key` names that model or batch
+    in the record and the lines). Beside K2 backward at the epilogues
+    without residual and ReLU, k2_bwd_library. -> (backward's record,
+    forward's)."""
     import torch
 
     from torch_helpers import bf16_ulps
@@ -790,14 +813,14 @@ def phase_k2_bwd(calls, dev, copy_gbs, key=""):
            f"launches take {out['library_shapes_ms']:.3f} ms (dx within "
            f"{out['library_max_abs_err']:.3g})")
     say(f"[K2 bwd{key}] all {len(shapes)} shapes x 8 variants agree and "
-        f"repeat bit for bit; per bf16 backward pass at {TRAIN_BS} clips: "
+        f"repeat bit for bit; per bf16 backward pass at {clips} clips: "
         f"wrapper {out['ms']:.3f} ms, the launches alone "
         f"{out['launches_ms']:.3f} ms of which pass 2 {out['pass2_ms']:.3f} "
         f"ms, plain {out['plain_ms']:.3f} ms over {sum(calls.values())} "
         f"epilogues; {lib}; "
         + bound(out, out["bytes"], out["flops"], copy_gbs))
     say(f"[K2 fwd, train{key}] the same shapes and variants agree; "
-        + k2_fwd_text(fwd, f"at {TRAIN_BS} clips over "
+        + k2_fwd_text(fwd, f"at {clips} clips over "
                            f"{sum(calls.values())} epilogues") + "; "
         + bound(fwd, fwd["bytes"], fwd["flops"], copy_gbs))
     RECORD["k2_bwd" + key], RECORD["k2_fwd_train" + key] = out, fwd
@@ -2223,6 +2246,444 @@ def phase_fixconvs(tmp, dev):
     return launches
 
 
+# ------------------ data parallelism across processes (phases 16-18) ----
+
+DP_LOCAL = TRAIN_BS // 2   # clips a process steps on in phases 17 and 18
+DP_WARMUP, DP_TIMED = 2, 3  # bf16 steps before and in the timing
+DP_SPAWN_TIMEOUT = 480     # seconds for the processes of one phase
+
+
+def host_rows(host, rows):
+    """The samples `rows` (a slice) of a host batch."""
+    import dataclasses
+
+    return dataclasses.replace(host, **{
+        k: getattr(host, k)[rows] for k in ("canvas", "y0", "y1", "wy", "x0",
+                                            "x1", "wx", "z", "label",
+                                            "weight")})
+
+
+def f32_steps(args, dev, rows):
+    """Two float32 steps of the Experiment of `args` (a seeded non-zero Adam
+    state) on the clips `rows` of its first host batch of TRAIN_BS clips
+    (read as one process reads it). -> (losses, parameters on the CPU)."""
+    from torch_helpers import seed_adam
+
+    exp, host, ce = experiment(args, dev)
+    seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+    b = to_card(exp, host_rows(host, rows))
+    losses = [float(exp.train_step(b["x"], b["z"], b["label"], b["weight"],
+                                   ce)["loss"]) for _ in range(2)]
+    params = {k: v.detach().cpu().clone()
+              for k, v in exp.model.named_parameters()}
+    exp.log.close()
+    return losses, params
+
+
+def dp_timed_steps(args, dev, rows):
+    """The bf16 Experiment of `args` on the clips `rows` of its first host
+    batch: the kernels' launches counted over one K1 (the batch) and
+    DP_WARMUP + DP_TIMED steps; the timed steps each between two CUDA events
+    and by the host's clock around a synchronise. -> (record, exp, batch,
+    class embeddings)."""
+    import torch
+
+    exp, host, ce = experiment(args, dev)
+    zero_counts()
+    b = to_card(exp, host_rows(host, rows))
+    ev, wall, losses = [], [], []
+    for i in range(DP_WARMUP + DP_TIMED):
+        torch.cuda.synchronize()
+        e0 = torch.cuda.Event(enable_timing=True)
+        e1 = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        e0.record()
+        m = exp.train_step(b["x"], b["z"], b["label"], b["weight"], ce)
+        e1.record()
+        torch.cuda.synchronize()
+        if i >= DP_WARMUP:
+            wall.append((time.perf_counter() - t0) * 1e3)
+            ev.append(e0.elapsed_time(e1))
+        losses.append(float(m["loss"]))
+    launches = read_counts()
+    check(all(math.isfinite(v) for v in losses), f"losses {losses}")
+    return ({"event_ms": statistics.median(ev), "host_ms":
+             statistics.median(wall), "event_ms_all": ev, "host_ms_all": wall,
+             "losses": losses, "launches": launches}, exp, b, ce)
+
+
+def nccl_step_trace(exp, b, ce):
+    """One train step in a torch.profiler trace: the device time of the NCCL
+    kernels and of all kernels, and the number of c10d all-reduce calls the
+    host made. -> dict."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    exp.train_step(b["x"], b["z"], b["label"], b["weight"], ce)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        exp.train_step(b["x"], b["z"], b["label"], b["weight"], ce)
+        torch.cuda.synchronize()
+    events = prof.events()
+    dev_kernels = [e for e in events
+                   if e.device_type == torch.autograd.DeviceType.CUDA]
+    nccl = [e for e in dev_kernels if "nccl" in e.name.lower()]
+    calls = [e for e in events
+             if e.device_type == torch.autograd.DeviceType.CPU
+             and e.name.lower() in ("nccl:all_reduce", "c10d::allreduce_")]
+    return {"nccl_kernels": len(nccl),
+            "nccl_ms": sum(e.time_range.elapsed_us() for e in nccl) / 1e3,
+            "device_ms": sum(e.time_range.elapsed_us()
+                             for e in dev_kernels) / 1e3,
+            "allreduce_calls": len([e for e in calls
+                                    if e.name.lower() == "nccl:all_reduce"]),
+            "c10d_calls": len([e for e in calls
+                               if e.name.lower() == "c10d::allreduce_"])}
+
+
+def dp_world1_job(rank, world, dev, out_dir, join):
+    """Phase 16 in its own process (its trace is then not the main
+    process's: a second torch.profiler session in one process drops
+    kernels, and K4's trace comes last there): the float32 steps and the
+    timed bf16 steps without a group, then `join` (an NCCL group of one)
+    and the same again, the launches counted in the group's run, and one
+    step's collectives in a trace. The float32 parameters are saved
+    beside."""
+    import torch
+
+    f32_args = cli_argv(out_dir, dev, "float32", TRAIN_BS, TRAIN_BS)
+    bf_args = cli_argv(out_dir, dev, "bfloat16", TRAIN_BS, TRAIN_BS)
+    rows = slice(0, TRAIN_BS)
+    res = {}
+    for tag in ("no_group", "group"):
+        if tag == "group":
+            join()
+            res["backend"] = torch.distributed.get_backend()
+        losses, params = f32_steps(f32_args, dev, rows)
+        path = os.path.join(out_dir, f"params_{tag}.pt")
+        torch.save(params, path)
+        del params
+        timed, exp, b, ce = dp_timed_steps(bf_args, dev, rows)
+        res[tag] = {"losses": losses, "params": path, "timed": timed}
+        if tag == "group":
+            res["trace"] = nccl_step_trace(exp, b, ce)
+        exp.log.close()
+        del exp, b
+        torch.cuda.empty_cache()
+    return res
+
+
+def phase_dp_world1(tmp, smi):
+    """A process group of one rank under NCCL (r2plus1d_18, 16 clips of
+    16x112x112), in one spawned process: two float32 steps against the
+    same steps without a group (loss rtol 1e-4, parameters atol 2e-5; bit
+    for bit reported), DP_TIMED bf16 steps timed with and without the
+    group, the launches counted in the group's run, and one step's
+    collectives in a trace. -> (launches, the ungrouped float32 steps'
+    losses and parameters)."""
+    import torch
+
+    (r,) = spawn_ranks("world1", "nccl", tmp, world=1)
+    check(r["backend"] == "nccl", f"backend {r['backend']}")
+    plain, grp, trace = r["no_group"], r["group"], r["trace"]
+    l_plain, l_grp = plain["losses"], grp["losses"]
+    p_plain = torch.load(plain["params"], weights_only=True)
+    p_grp = torch.load(grp["params"], weights_only=True)
+    launches = grp["timed"]["launches"]
+    steps = DP_WARMUP + DP_TIMED
+    check(launches == expect(1, 37 * steps, 37 * steps),
+          f"train_dp_world1 launches {launches}")
+    bitwise = l_grp == l_plain and all(torch.equal(p_grp[k], p_plain[k])
+                                       for k in p_plain)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(l_grp, l_plain))
+    dmax = max(float((p_grp[k] - p_plain[k]).abs().max()) for k in p_plain)
+    del p_grp
+    say(f"[train_dp_world1] NCCL group of one, 2 float32 steps of "
+        f"{TRAIN_BS} clips: losses {l_grp} vs {l_plain} without a group "
+        f"(rel {rel:.2g}, bar 1e-4), parameters {dmax:.3g} apart (bar "
+        f"2e-5), bit for bit: {bitwise}")
+    check(rel <= 1e-4 and dmax <= 2e-5,
+          f"train_dp_world1: f32 steps off the ungrouped ones: {rel}, {dmax}")
+    g, n = grp["timed"], plain["timed"]
+    say(f"[train_dp_world1] bf16 step of {TRAIN_BS} clips: "
+        f"{g['event_ms']:.2f} ms by CUDA events, {g['host_ms']:.2f} ms by "
+        f"the host's clock in the group; {n['event_ms']:.2f} / "
+        f"{n['host_ms']:.2f} ms without (medians of {DP_TIMED} steps after "
+        f"{DP_WARMUP}); one step's trace: {trace['allreduce_calls']} NCCL "
+        f"all-reduce calls ({trace['c10d_calls']} c10d), "
+        f"{trace['nccl_kernels']} NCCL kernels, {trace['nccl_ms']:.3f} ms of "
+        f"NCCL device time of {trace['device_ms']:.2f} ms; launches "
+        f"{launches}  ({smi})")
+    RECORD["train_dp_world1"] = {
+        "f32": {"loss_rel": rel, "param_max_abs": dmax, "bitwise": bitwise},
+        "group": g, "no_group": n, "trace": trace}
+    return launches, (l_plain, p_plain)
+
+
+def dp_rank_entry(rank, world, backend, store, out_dir, job):
+    """One spawned process of phase 16, 17 or 18 (gloo: every process on
+    cuda:0; NCCL: cuda:<rank>): runs `job`, which joins the group when it
+    calls the function it is given, and saves its result."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(
+        __file__)), "tests"))
+    from zeroshotvideoclassification_tpu_torch.parallel import (
+        maybe_initialize,
+    )
+
+    dev = torch.device("cuda", 0 if backend == "gloo" else rank)
+
+    def join():
+        maybe_initialize(backend=backend, init_method=f"file://{store}",
+                         rank=rank, world_size=world, device=dev)
+
+    try:
+        res = {"world1": dp_world1_job, "step": dp_step_job,
+               "cli": dp_cli_job}[job](rank, world, dev, out_dir, join)
+        torch.save(res, os.path.join(out_dir, f"{job}_{rank}.pt"))
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+
+
+def spawn_ranks(job, backend, tmp, world=2):
+    """Run dp_rank_entry(job) in `world` spawned processes, at most
+    DP_SPAWN_TIMEOUT seconds; every process is stopped before this returns
+    or raises. -> their results, by rank."""
+    import torch
+    import torch.multiprocessing as mp
+
+    out_dir = os.path.join(tmp, f"dp_{job}")
+    os.makedirs(out_dir, exist_ok=True)
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    ctx = mp.start_processes(
+        dp_rank_entry, args=(world, backend, os.path.join(out_dir, "store"),
+                             out_dir, job),
+        nprocs=world, join=False, start_method="spawn")
+    deadline = time.monotonic() + DP_SPAWN_TIMEOUT
+    try:
+        while not ctx.join(timeout=5):
+            check(time.monotonic() < deadline,
+                  f"{job}: the processes did not end in {DP_SPAWN_TIMEOUT} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+                p.join(30)
+    return [torch.load(os.path.join(out_dir, f"{job}_{r}.pt"),
+                       weights_only=False) for r in range(world)]
+
+
+def dp_step_job(rank, world, dev, out_dir, join):
+    """Phase 17 in one process: the two float32 steps on its DP_LOCAL clips
+    of phase 16's batch (parameters saved beside), then the timed bf16
+    steps with the launches counted."""
+    import torch
+
+    join()
+    rows = slice(rank * DP_LOCAL, (rank + 1) * DP_LOCAL)
+    losses, params = f32_steps(cli_argv(out_dir, dev, "float32", DP_LOCAL,
+                                        TRAIN_BS), dev, rows)
+    path = os.path.join(out_dir, f"params_{rank}.pt")
+    torch.save(params, path)
+    timed, exp, _, _ = dp_timed_steps(
+        cli_argv(out_dir, dev, "bfloat16", DP_LOCAL, TRAIN_BS), dev, rows)
+    exp.log.close()
+    return {"losses": losses, "params": path, "timed": timed,
+            "backend": torch.distributed.get_backend()}
+
+
+def dp_cli_job(rank, world, dev, out_dir, join):
+    """Phase 18 in one process: one epoch of cli.main (global batch
+    TRAIN_BS, 2 steps, the evaluation, --checkpoint_every 1) with the
+    launches counted and every file this process opens to write under the
+    save path recorded."""
+    import torch
+
+    join()
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+
+    args = cli_argv(out_dir, dev, "bfloat16", DP_LOCAL, 2 * TRAIN_BS,
+                    "--checkpoint_every", "1")
+    root = os.path.realpath(os.path.join(out_dir, "runs"))
+    writes = []
+
+    def audit(event, a):
+        if event == "open":
+            paths = [a[0]] if (any(c in (a[1] or "") for c in "wax+") or (
+                a[2] or 0) & (os.O_WRONLY | os.O_RDWR | os.O_CREAT)) else []
+        elif event == "os.mkdir":
+            paths = [a[0]]
+        elif event in ("os.rename", "os.replace"):
+            paths = [a[0], a[1]]
+        else:
+            return
+        for path in paths:
+            if (isinstance(path, str)
+                    and os.path.realpath(path).startswith(root)):
+                writes.append(os.path.relpath(os.path.realpath(path), root))
+
+    sys.addaudithook(audit)
+    zero_counts()
+    t0 = time.perf_counter()
+    summary = train_cli.main(args)
+    torch.cuda.synchronize()
+    return {"summary": summary, "launches": read_counts(),
+            "seconds": time.perf_counter() - t0, "writes": writes,
+            "root": root}
+
+
+def phase_dp_2rank(tmp, dev, smi, f32_plain):
+    """Two processes, DP_LOCAL clips each (global batch TRAIN_BS): NCCL on
+    two GPUs where the host shows two, else gloo with both on cuda:0 (NCCL
+    refuses two processes on one device). Two float32 steps against phase
+    16's one process on the whole batch (loss rtol 1e-4, parameters atol
+    2e-5), parameters bit-equal across the processes, and the bf16 steps'
+    launches (one K1, 37 K2 forward and 37 K2 backward a step) and time.
+    -> (backend, rank 0's launches)."""
+    import torch
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    t0 = time.perf_counter()
+    rs = spawn_ranks("step", backend, tmp)
+    wall = time.perf_counter() - t0
+    l_one, p_one = f32_plain
+    params = [torch.load(r["params"], weights_only=True) for r in rs]
+    check(all(r["backend"] == backend for r in rs), "backend")
+    check(rs[0]["losses"] == rs[1]["losses"], f"ranks' losses "
+          f"{[r['losses'] for r in rs]}")
+    same = all(torch.equal(params[0][k], params[1][k]) for k in params[0])
+    check(same, "train_dp_2rank: parameters differ across the processes")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], l_one))
+    dmax = max(float((params[0][k] - p_one[k]).abs().max()) for k in p_one)
+    steps = DP_WARMUP + DP_TIMED
+    for r in rs:
+        check(r["timed"]["launches"] == expect(1, 37 * steps, 37 * steps),
+              f"train_dp_2rank launches {r['timed']['launches']}")
+    say(f"[train_dp_2rank] {backend}, 2 processes "
+        f"{'on cuda:0 and cuda:1' if backend == 'nccl' else 'both on cuda:0'}"
+        f", {DP_LOCAL} clips each: 2 float32 steps, losses "
+        f"{rs[0]['losses']} vs {l_one} of one process on {TRAIN_BS} (rel "
+        f"{rel:.2g}, bar 1e-4), parameters {dmax:.3g} apart (bar 2e-5), bit-"
+        f"equal across the processes; launches a process "
+        f"{rs[0]['timed']['launches']} over {steps} steps")
+    check(rel <= 1e-4 and dmax <= 2e-5,
+          f"train_dp_2rank against one process: {rel}, {dmax}")
+    say(f"[train_dp_2rank] bf16 step of {DP_LOCAL} clips a process: "
+        f"{[round(r['timed']['event_ms'], 2) for r in rs]} ms by CUDA events, "
+        f"{[round(r['timed']['host_ms'], 2) for r in rs]} ms by the host's "
+        f"clock (processes 0, 1; medians of {DP_TIMED}); "
+        + ("both processes share one GPU under gloo: a correctness run, not "
+           "a scaling figure" if backend == "gloo" else "one GPU each")
+        + f"; the phase {wall:.1f} s  ({smi})")
+    RECORD["train_dp_2rank"] = {
+        "backend": backend, "loss_rel": rel, "param_max_abs": dmax,
+        "timed": [r["timed"] for r in rs], "seconds": wall}
+    return backend, rs[0]["timed"]["launches"]
+
+
+def phase_dp_cli(tmp, dev, smi):
+    """cli.main on two processes (as phase 17): one epoch of 2 steps of
+    TRAIN_BS clips, the evaluation, --checkpoint_every 1. Both report the
+    same metrics; process 1 opens no file to write under the save path; a
+    one-process --evaluate of process 0's checkpoint gives its test
+    accuracy. -> rank 0's launches."""
+    import glob
+
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    rs = spawn_ranks("cli", backend, tmp)
+    keys = ("loss", "train_accuracy", "synthetic_test_accuracy",
+            "best_accuracy")
+    check(all(rs[0]["summary"][k] == rs[1]["summary"][k] for k in keys),
+          f"cli_dp_2rank summaries {[r['summary'] for r in rs]}")
+    check(rs[1]["writes"] == [], f"process 1 wrote {rs[1]['writes']}")
+    check(any(w.endswith("last.npz") for w in rs[0]["writes"]),
+          f"process 0 wrote {rs[0]['writes']}")
+    for r in rs:  # 2 steps and one evaluation dispatch of 8 videos each
+        check(r["launches"] == expect(3, 37 * 3, 37 * 2),
+              f"cli_dp_2rank launches {r['launches']}")
+    run = os.path.dirname(glob.glob(os.path.join(rs[0]["root"], "**",
+                                                 "last.npz"),
+                                    recursive=True)[0])
+    ckpt = os.path.join(run, "checkpoint.npz")
+    if not os.path.exists(ckpt):  # accuracy 0: no best checkpoint
+        ckpt = os.path.join(run, "last.npz")
+    acc = train_cli.main(cli_argv(os.path.join(tmp, "dp_eval"), dev,
+                                  "bfloat16", TRAIN_BS, 2 * TRAIN_BS,
+                                  "--evaluate", "--weights", ckpt))
+    torch.cuda.synchronize()
+    want = rs[0]["summary"]["synthetic_test_accuracy"]
+    say(f"[cli_dp_2rank] {backend}: cli.main on 2 processes in "
+        f"{rs[0]['seconds']:.1f} s: loss {rs[0]['summary']['loss']:.5f}, "
+        f"test accuracy {want:.1f} on both; process 0 wrote "
+        f"{len(rs[0]['writes'])} files, process 1 none; launches a process "
+        f"{rs[0]['launches']}; --evaluate of {os.path.basename(ckpt)} on one "
+        f"process: {acc['synthetic_test_accuracy']:.1f}  ({smi})")
+    check(acc["synthetic_test_accuracy"] == want,
+          f"--evaluate of process 0's checkpoint: {acc} vs {want}")
+    RECORD["cli_dp_2rank"] = {"backend": backend,
+                              "summaries": [r["summary"] for r in rs],
+                              "launches": [r["launches"] for r in rs],
+                              "writes_rank0": rs[0]["writes"],
+                              "evaluate": acc}
+    return rs[0]["launches"]
+
+
+def phase_dp_kernels(tmp, dev, copy_gbs):
+    """K1 and K2 forward and backward against their plain versions at the
+    shapes of a process of phases 17 and 18 (DP_LOCAL clips of the
+    training table's first batch). -> (K1's record, K2 backward's, K2
+    forward's)."""
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.cli.infer import load_model
+    from zeroshotvideoclassification_tpu_torch.config import (
+        Config,
+        config_from_namespace,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.datasets import (
+        build_datasets,
+    )
+    from zeroshotvideoclassification_tpu_torch.data.pipeline import (
+        HostPipeline,
+    )
+
+    cfg = config_from_namespace(train_cli.build_arg_parser().parse_args(
+        cli_argv(tmp, dev, "bfloat16", DP_LOCAL, TRAIN_BS)))
+    table = build_datasets(cfg, None)["training"][0]
+    host = next(iter(HostPipeline(table, cfg, TRAIN_BS, seed=cfg.seed)))
+    local = host_rows(host, slice(0, DP_LOCAL))
+    args = [torch.from_numpy(np.ascontiguousarray(getattr(local, k))).to(dev)
+            for k in ("canvas", "y0", "y1", "wy", "x0", "x1", "wx")]
+    k1 = {"shapes": []}
+    for dt in (torch.float32, torch.bfloat16):
+        row, _ = k1_compare(args, dt, f"a process's shard of {DP_LOCAL}")
+        k1["shapes"].append(row)
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["shapes"])
+    for k in ("ms", "launch_ms", "plain_ms"):
+        k1[k] = row[k]
+    say(f"[K1] shard of {DP_LOCAL} -> bfloat16: "
+        + bound(k1, row["bytes"], row["flops"], copy_gbs))
+    RECORD["k1_dp"] = k1
+    m, _ = load_model(Config(size=SIZE, clip_len=CLIP_LEN,
+                             compute_dtype="float32"), None, dev)
+    calls = epilogue_calls(m, torch.zeros(
+        (DP_LOCAL, 1, CLIP_LEN, SIZE, SIZE, 3), device=dev))
+    del m
+    k2b, k2f = phase_k2_bwd(calls, dev, copy_gbs, key="_dp",
+                            clips=DP_LOCAL)
+    return k1, k2b, k2f
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", default=None,
@@ -2292,6 +2753,14 @@ def main(argv=None):
         remat_launches = phase_remat(tmp, dev, smi)
         torch.cuda.empty_cache()
         fix_launches = phase_fixconvs(tmp, dev)
+        torch.cuda.empty_cache()
+        k1_dp, k2b_dp, k2_dp = phase_dp_kernels(tmp, dev, copy_gbs)
+        torch.cuda.empty_cache()
+        dp1_launches, f32_plain = phase_dp_world1(tmp, smi)
+        torch.cuda.empty_cache()
+        _, dp2_launches = phase_dp_2rank(tmp, dev, smi, f32_plain)
+        del f32_plain
+        cli_dp_launches = phase_dp_cli(tmp, dev, smi)
         k4_trace(dev, k4, smi)
 
     outside = [m for m in sys.modules if m.split(".")[0] in (
@@ -2365,6 +2834,19 @@ def main(argv=None):
             fix_launches, k1_train),
         row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train_fixconvs",
             fix_launches, k2_train),
+        # data parallelism: a group of one at the training path's shapes;
+        # two processes at DP_LOCAL clips each, launches counted in process
+        # 0 (process 1's are held equal to them)
+        *[row(name, source, at, path, launches, rec)
+          for path, launches, recs in (
+              ("train_dp_world1", dp1_launches, (k1_train, k2_train, k2b)),
+              ("train_dp_2rank", dp2_launches, (k1_dp, k2_dp, k2b_dp)),
+              ("cli_dp_2rank", cli_dp_launches, (k1_dp, k2_dp, k2b_dp)))
+          for (name, source, at), rec in zip((
+              ("video_transform", "video_transform.cu", k1_at),
+              ("bn_apply_relu", "bn_apply_relu.cu", k2_at),
+              ("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173")),
+              recs)],
     ]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was never launched on a main path: {kernels}")

@@ -54,7 +54,7 @@ def test_every_port_module_imports():
                  "text.word2vec", "text.class_names", "text.filters",
                  "text.lemma", "utils.logging", "serve.batcher",
                  "serve.server", "serve.engine", "cli.infer", "cli.serve",
-                 "cli.main"):
+                 "cli.main", "parallel.mesh", "parallel.multihost"):
         assert f"{port.__name__}.{name}" in mods, name
     for name in mods:
         importlib.import_module(name)
@@ -136,7 +136,9 @@ def _sources():
              os.path.join(ROOT, "tools", "profile_k3.py"),
              os.path.join(ROOT, "tools", "profile_kernels.py"),
              os.path.join(ROOT, "tools", "profile_k1.py"),
-             os.path.join(ROOT, "tools", "zsl32_resume.py")]
+             os.path.join(ROOT, "tools", "zsl32_resume.py"),
+             os.path.join(ROOT, "tools", "profile_dp.py"),
+             os.path.join(ROOT, "tools", "dp_phases.py")]
     for d, _, names in os.walk(os.path.dirname(port.__file__)):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -146,8 +148,8 @@ def _sources():
                                   for p in _sources()])
 def test_no_source_imports_the_jax_package(path):
     """No `import` / `from` line of the port, chip_smoke.py or
-    tools/profile_{serve,train,k3,kernels,k1}.py or tools/zsl32_resume.py
-    names jax or
+    tools/profile_{serve,train,k3,kernels,k1,dp}.py, tools/dp_phases.py or
+    tools/zsl32_resume.py names jax or
     zeroshotvideoclassification_tpu
     (without _torch), nor does an importlib / __import__ call."""
     bad = re.compile(
@@ -166,7 +168,8 @@ def test_sources_cover_the_whole_port():
     assert "chip_smoke.py" in rel and len(rel) > 40
     for sub in (("cli", "main.py"), ("eval", "zeroshot.py"),
                 ("ops", "temporal_conv.py"), ("ops", "resample_cuda.py"),
-                ("models", "c3d.py")):
+                ("models", "c3d.py"), ("parallel", "mesh.py"),
+                ("parallel", "multihost.py")):
         assert os.path.join("zeroshotvideoclassification_tpu_torch",
                             *sub) in rel, sub
 

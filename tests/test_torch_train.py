@@ -613,7 +613,7 @@ def test_cli_main_trains_one_epoch_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "P7"),
+    (["--tp", "2"], "P7b"),
     (["--debug_nans"], "P11"), (["--steps_per_call", "4"], "P11"),
     (["--save_samples"], "P11")])
 def test_cli_main_refuses_what_is_not_ported(flags, item, tmp_path,

@@ -13,6 +13,9 @@ same place:
                    checkpoint reader
   data/            datasets, decoders, the host pipeline, host batch -> device
   text/            class names -> word2vec embeddings
+  parallel/        data parallelism over processes with one GPU each
+                   (torch.distributed: the process group, lockstep table
+                   shards, the collectives of BN, loss, gradients, eval)
   serve/, cli/     the inference engine, micro-batcher and HTTP server; the
                    `main` (training), `infer` and `serve` entry points
   utils/           metrics logging and timers

@@ -1,4 +1,5 @@
-"""Training and evaluation entry point with reference CLI parity, on one GPU.
+"""Training and evaluation entry point with reference CLI parity, on one
+GPU or on several processes with one GPU each.
 
 Counterpart of zeroshotvideoclassification_tpu/cli/main.py: build the
 datasets, then per epoch set the learning rate from the MultiStepLR
@@ -38,19 +39,40 @@ Every model of the JAX package trains here (models/heads.get_network):
 linear head), --head mlp / linear, --clip_pool feature / embedding,
 --fixconvs, --remat [full|convs]. The linear and C3D heads' dropout draws
 its masks from a generator on the model's device, seeded per epoch with
-(seed << 16) + epoch.
+(seed << 16) + epoch, plus rank << 48 on the processes of a group (each
+draws its own shard's masks).
+
+Data parallelism (parallel/): under torchrun (its WORLD_SIZE / RANK /
+LOCAL_RANK), or where a caller opened a process group (as the tests' and
+chip_smoke.py's workers do), every process trains a replica on its
+lockstep shard of each global batch of --bs x the 'data' axis (the number
+of processes), with BN statistics, the loss and the gradients over the
+global batch, evaluates its shard of each test table and gathers the rows
+of all; process 0 decides the run directory and --resume auto and alone
+writes the CSV, JSONL, stamp and checkpoint files. A plain launch with
+--device cuda on a host that shows several GPUs runs one process per GPU
+(spawned here; NCCL) and returns process 0's summary, as the JAX package
+uses every device of its mesh; --device cuda:N or cpu runs one process.
+
+  torchrun --nproc_per_node 2 -m zeroshotvideoclassification_tpu_torch.cli.main \
+      --dataset synthetic --class_total 8 --train_samples 16 --bs 4 \
+      --size 32 --clip_len 8 --device cpu --nopretrained
 
 The flags are the JAX trainer's (config.build_arg_parser, the same Config)
-plus --device, which defaults to cuda; asking for cuda without a GPU raises.
-What the port does not do yet raises NotImplementedError, naming its
-ROADMAP item, before any dataset is built: --tp > 1 (P7), and
---steps_per_call > 1 / --save_samples / --debug_nans (P11).
+plus --device, which defaults to cuda (cuda:LOCAL_RANK under a process
+group); asking for cuda without a GPU raises. What the port does not do
+yet raises NotImplementedError, naming its ROADMAP item, before any
+dataset is built: --tp > 1 (P7b), and --steps_per_call > 1 /
+--save_samples / --debug_nans (P11).
 """
 
 from __future__ import annotations
 
 import argparse
+import json
 import os
+import sys
+import tempfile
 import time
 from typing import Dict, List
 
@@ -80,6 +102,20 @@ from zeroshotvideoclassification_tpu_torch.eval import (
 )
 from zeroshotvideoclassification_tpu_torch.models import get_network
 from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
+from zeroshotvideoclassification_tpu_torch.parallel import (
+    agree_from_process_zero,
+    make_mesh,
+    maybe_initialize,
+    process_count,
+    process_index,
+    shard_table,
+    sync_processes,
+)
+from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    group_active,
+    local_rank,
+    run_local_ranks,
+)
 from zeroshotvideoclassification_tpu_torch.train import (
     eval_step,
     host_state,
@@ -102,7 +138,7 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError for every request the port cannot honour
     yet, naming the ROADMAP item that will."""
     asked = [
-        (config.tp > 1, "--tp > 1", "P7"),
+        (config.tp > 1, "--tp > 1", "P7b"),
         (config.steps_per_call > 1, "--steps_per_call > 1", "P11"),
         (config.save_samples, "--save_samples", "P11"),
         (config.debug_nans, "--debug_nans", "P11"),
@@ -147,9 +183,9 @@ def eval_batch_size(global_bs: int, n_clips: int, n_data: int,
     batch and eval numerics are per-sample (running-stat BN), so a bigger
     batch only changes the zero-weight tail padding. Rounded up to a
     multiple of lcm(n_data, process_count) so batches both shard evenly over
-    the devices and split evenly across processes (both 1 in this port
-    until several GPUs are), then capped at the table size (same rounding)
-    so tiny test sets don't dispatch mostly padding.
+    the devices and split evenly across processes (in the port both are
+    the number of processes: one device each), then capped at the table
+    size (same rounding) so tiny test sets don't dispatch mostly padding.
 
     clip_budget == 0 restores the reference batch sizing EXACTLY (no clip
     floor and no tiny-table cap — only the divisibility rounding).
@@ -165,26 +201,48 @@ def eval_batch_size(global_bs: int, n_clips: int, n_data: int,
     return min(bs, ((table_len + mult - 1) // mult) * mult)
 
 
+def rank_device(device) -> torch.device:
+    """The device of this process: `device`, where `cuda` without an index
+    means cuda:LOCAL_RANK under a process group; cuda without a GPU
+    raises."""
+    device = torch.device(device)
+    if device.type == "cuda" and device.index is None and group_active():
+        device = torch.device("cuda", local_rank())
+    return resolve_device(device)
+
+
 class Experiment:
-    """Bundles model, optimizer, steps and logging for one run."""
+    """Bundles model, optimizer, steps and logging for one run (one process
+    of a data-parallel group, or the only one)."""
 
     def __init__(self, config: Config,
                  datasets: Dict[str, List[VideoTable]], device="cuda"):
         check_ported(config)
         self.config = config
         self.datasets = datasets
-        self.device = resolve_device(device)
+        self.device = rank_device(device)
         # full float32 where float32 is asked for, and cuDNN timing its
         # algorithms per conv shape, as cli/infer.build_scoring_state
         torch.backends.cudnn.allow_tf32 = False
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.benchmark = True
-        self.global_bs = config.bs  # one device
+        self.rank, self.world = process_index(), process_count()
+        self.n_data = make_mesh(config.mesh_shape, config.mesh_axes,
+                                self.world).get("data", 1)
+        # reference: bs * n_gpus (main.py:61-63); each process feeds its
+        # lockstep share of the global batch
+        self.global_bs = config.bs * self.n_data
+        if self.global_bs % self.world:
+            raise ValueError(
+                f"global batch {self.global_bs} not divisible by "
+                f"process_count {self.world}; adjust --bs")
+        self.local_bs = self.global_bs // self.world
         train_tables = datasets.get("training") or []
-        self.train_bs = self.global_bs
+        self.train_bs, self.train_local_bs = self.global_bs, self.local_bs
         if (train_tables and train_tables[0].loader == "image"
                 and config.class_total != 0):
-            self.train_bs = self._image_train_batch()
+            # checked here, at construction, not at the first epoch
+            self.train_bs, self.train_local_bs = self._image_train_batch()
         self.model = get_network(config)
         init_weights(self.model, torch.Generator().manual_seed(config.seed))
         self.model = self.model.to(device=self.device,
@@ -196,11 +254,13 @@ class Experiment:
                                           compute_dtype=self.dtype)
         self.start_epoch = 0
         self.best_acc = 0.0
-        base = config.savename(1)
+        base = config.savename(self.n_data)
         if config.resume == "auto":
             # preemption recovery: the newest full-state checkpoint under
-            # this run's name (and its _N dirs); a fresh run if there is none
-            found = _find_latest_checkpoint(base)
+            # this run's name (and its _N dirs); a fresh run if there is
+            # none. Process 0 chooses and every process takes its choice.
+            found = agree_from_process_zero(
+                _find_latest_checkpoint(base) if self.rank == 0 else None)
             config = config.replace(resume=found)
             self.config = config
             print(f"RESUME auto: {found or 'no checkpoint found, fresh run'}")
@@ -236,14 +296,25 @@ class Experiment:
             elif not config.nopretrained:
                 self._warm_start_pretrained()
             # de-dup the experiment dir with a _N suffix
-            # (reference/main.py:94-97)
-            self.savename, count = base, 1
-            while os.path.exists(self.savename):
-                self.savename = base + f"_{count}"
-                count += 1
-        os.makedirs(self.savename, exist_ok=True)
-        self.log = MetricsLogger(self.savename)
+            # (reference/main.py:94-97), on process 0, which claims the
+            # directory before the others take its name
+            found = None
+            if self.rank == 0:
+                found, count = base, 1
+                while os.path.exists(found):
+                    found = base + f"_{count}"
+                    count += 1
+                os.makedirs(found)
+            self.savename = agree_from_process_zero(found)
+        # every file of the run is written by process 0 alone
+        self.writer = self.rank == 0
+        if self.writer:
+            os.makedirs(self.savename, exist_ok=True)
+        self.log = MetricsLogger(self.savename, write=self.writer)
         self._ckpt = None  # the writer thread, started at the first write
+        # the other processes wait while process 0 writes, so that the
+        # first step's collectives start together
+        sync_processes("init_placement")
 
     def _ckpt_writer(self):
         """This run's AsyncCheckpointer: writes on one ordered thread, so
@@ -281,16 +352,20 @@ class Experiment:
         cfg = self.config
         table = self.datasets["training"][0]
         global_bs = self.train_bs
-        pipe = HostPipeline(table, cfg, global_bs, seed=cfg.seed + epoch)
+        # each process pipelines its lockstep shard of the table, from the
+        # same seed (the identity with one process)
+        pipe = HostPipeline(shard_table(table), cfg, self.train_local_bs,
+                            seed=cfg.seed + epoch)
         class_embed = torch.from_numpy(
             np.asarray(table.class_embed, np.float32)).to(self.device)
         set_lr(self.optimizer, self.lr_at(epoch))
 
         batch_t, model_t = Timer(), Timer()
         losses, accs = [], []
-        # dropout's masks are drawn where the model is
+        # dropout's masks are drawn where the model is; each process draws
+        # its own shard's, as the JAX package draws one over the global batch
         rng = torch.Generator(self.device).manual_seed(
-            (cfg.seed << 16) + epoch)
+            (cfg.seed << 16) + epoch + (self.rank << 48))
         it = iter(pipe)
         if cfg.progressbar:
             try:
@@ -320,6 +395,9 @@ class Experiment:
                 host = next(it, None)
             if host is None:
                 break
+            if i == 0:
+                # the first step's collectives start together
+                sync_processes(f"train_dispatch_{epoch}")
             with model_t:
                 batch = device_batch(host, table.n_clips, cfg.clip_len,
                                      transform_dtype(cfg), self.device)
@@ -347,21 +425,29 @@ class Experiment:
         return {"loss": loss, "train_accuracy": acc,
                 "clips_per_sec": clips / max(total_t, 1e-9)}
 
-    def _image_train_batch(self) -> int:
-        """The halved SUN image-train batch.
+    def _image_train_batch(self):
+        """(global, local) of the halved SUN image-train batch.
 
         The reference halves the image-train batch (dataset.py:26:
         `opt.bs // 2 if ... 'image' in opt.dataset ...`) — each SUN sample
         inflates to n_clips*clip_len synthetic frames, so memory per sample
-        doubles vs a video clip."""
-        return max(self.config.bs // 2, 1)
+        doubles vs a video clip; halved per device. The halved global batch
+        must split evenly across the processes."""
+        global_bs = max(self.config.bs // 2, 1) * self.n_data
+        if global_bs % self.world:
+            raise ValueError(
+                f"halved image-train global batch {global_bs} not "
+                f"divisible by process_count {self.world}; adjust --bs")
+        return global_bs, global_bs // self.world
 
     # -------------------------------------------------------------- eval ----
     def evaluate(self, table: VideoTable, epoch: int) -> Dict[str, float]:
         cfg = self.config
-        eval_bs = eval_batch_size(self.global_bs, table.n_clips, 1, 1,
-                                  len(table), cfg.eval_clip_budget)
-        pipe = HostPipeline(table, cfg, eval_bs, seed=cfg.seed)
+        eval_bs = eval_batch_size(self.global_bs, table.n_clips, self.n_data,
+                                  self.world, len(table),
+                                  cfg.eval_clip_budget)
+        pipe = HostPipeline(shard_table(table), cfg, eval_bs // self.world,
+                            seed=cfg.seed)
         source = pipe
         if cfg.progressbar:
             try:
@@ -376,7 +462,8 @@ class Experiment:
                    for h in source)
         self.model.eval()  # BN running statistics; the train step sets train
         pred, true_e, true_l = extract_embeddings(
-            lambda x: eval_step(self.model, x), batches)
+            lambda x: eval_step(self.model, x), batches,
+            sync_tag=f"eval_dispatch_{table.name}_{epoch}")
         acc, acc5 = compute_accuracy(pred, table.class_embed, true_e,
                                      self.device)
         self.log.scalar(f"{table.name}/Accuracy", acc, epoch)
@@ -417,7 +504,7 @@ class Experiment:
         cfg = self.config
         trainsamples = (len(self.datasets["training"][0])
                         if self.datasets["training"] else 0)
-        if not cfg.evaluate and self.datasets["training"]:
+        if not cfg.evaluate and self.datasets["training"] and self.writer:
             # run-config stamp file (reference/main.py:333-335)
             n_classes = len(self.datasets["training"][0].classes)
             stamp = os.path.join(
@@ -447,10 +534,12 @@ class Experiment:
                 summary[f"{table.name}_accuracy"] = r["accuracy"]
             mean_acc = float(np.mean(accuracies)) if accuracies else 0.0
             improved = mean_acc > self.best_acc
-            # --evaluate is read-only: it writes no checkpoint
-            save_best = improved and not cfg.evaluate
+            # --evaluate is read-only: it writes no checkpoint; the
+            # replicas are equal, so process 0 writes the one file
+            save_best = improved and not cfg.evaluate and self.writer
             save_last = bool(cfg.checkpoint_every and not cfg.evaluate
-                             and (epoch + 1) % cfg.checkpoint_every == 0)
+                             and (epoch + 1) % cfg.checkpoint_every == 0
+                             and self.writer)
             if save_best or save_last:
                 # the state comes to host numpy here, on this thread; the
                 # writer thread writes it while the next epoch runs
@@ -490,11 +579,49 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def local_world(device) -> int:
+    """How many processes a launch of `device` runs here: every visible GPU
+    for a plain `cuda` (no index) outside a process group, else 1."""
+    device = torch.device(device)
+    if group_active() or device.type != "cuda" or device.index is not None:
+        return 1
+    return max(torch.cuda.device_count(), 1)
+
+
+def _rank_main(argv, out_dir):
+    """One spawned process of a plain launch on several GPUs: the trainer,
+    and process 0's summary into out_dir."""
+    summary = main(argv)
+    if process_index() == 0:
+        with open(os.path.join(out_dir, "summary.json"), "w") as f:
+            json.dump(summary, f)
+
+
 def main(argv=None):
     args = build_arg_parser().parse_args(argv)
+    # torchrun's processes join their group before anything else
+    opened = maybe_initialize(device=args.device)
+    try:
+        return _main(args, argv)
+    finally:
+        if opened:
+            torch.distributed.destroy_process_group()
+
+
+def _main(args, argv):
     config = config_from_namespace(args)
     check_ported(config)
-    resolve_device(args.device)
+    n_local = local_world(args.device)
+    if n_local > 1:
+        # a plain launch on a host with several GPUs uses all of them
+        with tempfile.TemporaryDirectory(prefix="zsvc_ranks_") as tmp:
+            run_local_ranks(
+                _rank_main,
+                (sys.argv[1:] if argv is None else list(argv), tmp),
+                n_local, f"file://{os.path.join(tmp, 'store')}")
+            with open(os.path.join(tmp, "summary.json")) as f:
+                return json.load(f)
+    rank_device(args.device)
     wv_model = None
     if "synthetic" not in config.dataset:
         from zeroshotvideoclassification_tpu_torch.text import load_word2vec

@@ -9,13 +9,14 @@ targets: reference/main.py:224-325), for one process.
     np.random.permutation(C)[:C//2] — reproduced bit-exactly with
     np.random.RandomState(split) (identical MT19937 stream).
 The distance/top-k math runs in torch (ops/cdist.py) on the device it is
-given. The multi-process pack of extract_embeddings and its barrier wait for
-the port of several processes.
+given. Under a process group extract_embeddings gathers every process's
+rows in rank order, so every process computes the metrics of the whole
+table.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Dict, Iterable, Tuple
+from typing import Callable, Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -23,6 +24,11 @@ import torch
 from zeroshotvideoclassification_tpu_torch.ops.cdist import (
     nearest_class,
     topk_classes,
+)
+from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    gather_rows,
+    group_active,
+    sync_processes,
 )
 
 
@@ -85,6 +91,7 @@ def extract_embeddings(
     eval_step: Callable[[torch.Tensor], torch.Tensor],
     batches: Iterable[Dict[str, torch.Tensor]],
     lookahead: bool = True,
+    sync_tag: Optional[str] = None,
 ) -> Tuple[np.ndarray, np.ndarray, np.ndarray]:
     """Run `eval_step` (x -> embeddings [B, 300]) over an iterable of
     evaluation batches.
@@ -95,6 +102,15 @@ def extract_embeddings(
     Returns (pred_embed [N,300], true_embed [N,300], true_label [N]) of the
     rows with weight > 0, in order.
 
+    Under a process group each process passes its lockstep shard of the
+    table; every batch's [emb, z, weight, label] is packed into ONE float32
+    [B, 2*300+2] tensor on the device and gathered in rank order
+    (parallel.multihost.gather_rows), as eval/zeroshot.py:119-137 of the
+    JAX package gathers its global array, so every process returns the
+    rows of the whole table. Labels ride the float32 pack exactly (class
+    counts are far below 2**24). `sync_tag` (unique per call site) aligns
+    the processes before the first dispatch.
+
     One-batch lookahead: batch k+1 is DISPATCHED before batch k's result is
     fetched. CUDA launches are asynchronous, but the fetch (`.cpu()` of the
     embeddings) blocks — without the lookahead the device sits idle through
@@ -103,22 +119,45 @@ def extract_embeddings(
     one extra in-flight batch of device memory; eval holds no activations,
     so that is cheap. `lookahead=False` collects each batch synchronously:
     the control for measuring what the lookahead buys. Results are
-    collected strictly in order either way."""
+    collected strictly in order either way, and every process runs the same
+    sequence of dispatches and gathers."""
     preds, trues, labels = [], [], []
+    multi = group_active()
+
+    def dispatch(batch):
+        """The step (and, under a group, the pack and its gather)."""
+        emb = eval_step(batch["x"])
+        if not multi:
+            return emb, batch
+        packed = torch.cat([emb.float(), batch["z"].float(),
+                            batch["weight"].float()[:, None],
+                            batch["label"].float()[:, None]], dim=1)
+        return gather_rows(packed), None
 
     def collect(pending):
         """Blocking fetch + host-side accumulation (in submission order)."""
-        emb, batch = pending
-        emb_h = emb.float().cpu().numpy()
-        w_h = batch["weight"].cpu().numpy()
+        dev, batch = pending
+        if batch is None:
+            packed = dev.cpu().numpy()
+            d = packed.shape[1] // 2 - 1
+            emb_h, z_h = packed[:, :d], packed[:, d:2 * d]
+            w_h = packed[:, 2 * d]
+            lab_h = packed[:, 2 * d + 1].astype(np.int64)
+        else:
+            emb_h = dev.float().cpu().numpy()
+            z_h = batch["z"].cpu().numpy()
+            w_h = batch["weight"].cpu().numpy()
+            lab_h = batch["label"].cpu().numpy()
         keep = w_h > 0
         preds.append(emb_h[keep])
-        trues.append(batch["z"].cpu().numpy()[keep])
-        labels.append(batch["label"].cpu().numpy()[keep])
+        trues.append(z_h[keep])
+        labels.append(lab_h[keep])
 
     pending = None
-    for batch in batches:
-        cur = (eval_step(batch["x"]), batch)
+    for i, batch in enumerate(batches):
+        if i == 0 and sync_tag:
+            sync_processes(sync_tag)
+        cur = dispatch(batch)
         if not lookahead:
             collect(cur)
             continue

@@ -15,7 +15,8 @@ contiguous [N, T, H, W, C] view.
   * BatchNorm3d: its forward is batchnorm_relu, the single entry point of
     every epilogue, like layers.py:248-287. In train mode the statistics
     are bn_statistics (layers.py:199-225: one pass, shifted by the running
-    mean, in float32, through autograd) and the running statistics move; in
+    mean, in float32, through autograd, over the global batch of all
+    processes) and the running statistics move; in
     eval mode they are the running statistics. Either way the apply is K2
     (ops/bn_cuda.bn_apply_relu) with mean and var as differentiable inputs.
     Inside `recomputing()` (a rematerialised block's second forward,
@@ -34,11 +35,17 @@ import math
 import threading
 from typing import Optional
 
+import numpy as np
 import torch
 import torch.nn.functional as F
 from torch import nn
 
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import bn_apply_relu
+from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    all_reduce_sum,
+    group_active,
+    process_count,
+)
 
 
 class Conv3d(nn.Conv3d):
@@ -88,16 +95,41 @@ def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
     running mean keeps E[s^2] - E[s]^2 from cancelling on activations with a
     large offset. mean and var are differentiable in x; new_mean / new_var
     are what the running statistics become ((1 - momentum) * old + momentum
-    * new, with the UNBIASED variance count / (count - 1)), detached."""
+    * new, with the UNBIASED variance count / (count - 1)), detached.
+
+    Under a process group the expectations are over the GLOBAL batch, as
+    the JAX package's over its sharded batch: one float32 tensor [sum s,
+    sum s^2, count] a layer is summed over the processes
+    (parallel.multihost.all_reduce_sum, differentiable, so the backward
+    sums each process's gradient of the sums), and the statistics and the
+    unbiased factor come from the global sums and count. Without a group
+    they are the plain means of this batch: packing, slicing and dividing
+    by a count tensor add autograd nodes and launches that a host-paced
+    step feels."""
     dims = tuple(range(x.dim() - 1))
+    count = float(math.prod(x.shape[:-1]))
     m0 = running_mean.detach()
     s = x - m0  # float32 by promotion: no float copy of x on its own
-    s_mean = s.mean(dims)
-    s_sq = torch.square(s).mean(dims)
+    if group_active():
+        total = count * process_count()
+        if float(np.float32(total)) != total:  # exact below 2^24, often above
+            raise ValueError(f"BN over {count:.0f} x {process_count()} "
+                             f"positions: the global count is not exact in "
+                             f"float32")
+        c = x.shape[-1]
+        sums = all_reduce_sum(torch.cat([
+            s.sum(dims), torch.square(s).sum(dims), s.new_full((1,), count)]))
+        s_sum, sq_sum, n = sums.split((c, c, 1))
+        n = n.detach()
+        s_mean, s_sq = s_sum / n, sq_sum / n
+        factor = n / torch.clamp_min(n - 1.0, 1.0)
+    else:
+        s_mean = s.mean(dims)
+        s_sq = torch.square(s).mean(dims)
+        factor = count / max(count - 1.0, 1.0)
     mean = s_mean + m0
     var = torch.clamp_min(s_sq - s_mean * s_mean, 0.0)
-    count = float(math.prod(x.shape[:-1]))
-    unbiased = var.detach() * (count / max(count - 1.0, 1.0))
+    unbiased = var.detach() * factor
     new_mean = (1 - momentum) * m0 + momentum * mean.detach()
     new_var = (1 - momentum) * running_var.detach() + momentum * unbiased
     return mean, var, new_mean, new_var
