@@ -3,8 +3,9 @@
 training path, its still-image (SUN) training path with the zero-shot
 evaluation, the temporal conv op, the other models and options of the
 trainer: C3D (trained and served), resnet18 (R3D-18 + the linear head),
---remat full / convs and --fixconvs, and data-parallel training across
-processes (one GPU, or two where the host shows two).
+--remat full / convs and --fixconvs, data-parallel training across
+processes (one GPU, or two where the host shows two), and K train steps a
+dispatch as CUDA graphs (--steps_per_call).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -142,14 +143,33 @@ result line) if it fails:
      with the evaluation and --checkpoint_every 1; both report the same
      metrics, process 1 opens no file to write under the save path, and a
      one-process --evaluate of process 0's checkpoint gives its test
-     accuracy.
+     accuracy;
+ 19. --steps_per_call as CUDA graphs of the train step (GRAPH_K = 4):
+     Experiment.run (what cli.main runs) in float32 at --steps_per_call 4
+     against 1 from one seeded Adam state, two epochs of 8 steps (lr 5e-4,
+     then 5e-5: a stale rate, class-embedding slot or generator would show)
+     and one epoch of 6 (a tail of 2 through the one-step graph): every
+     step's loss rtol 1e-4, parameters atol 2e-5, bit-equality reported;
+     the bf16 step of 16 clips eager and as a replay / 4, by CUDA events
+     and by the host's clock, in one process, peak memory of both and the
+     capture's time; K2's kernel nodes in one replay (CUDAGraph.debug_dump:
+     37 x 4 forward, 74 x 4 backward; no wrapper is called by a replay); a
+     replay of 4 NaN batches leaves parameters, moments and Adam's count
+     as they were; --debug_nans raises FloatingPointError naming the step
+     of a NaN batch, inside a replayed group and at --steps_per_call 1;
+     resnet18's dropout draws new masks each replay and the eager masks
+     again once the generator is reseeded; one --remat full group against
+     single steps (BN statistics moved once a step, 72 x 4 forward
+     kernels); and an NCCL group of one (and of two where the host shows
+     two GPUs) with the all-reduces captured, against single steps.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
 each main path that launches it ("path": "serve", "train", "train_sun",
 "train_c3d", "serve_c3d", "train_r3d_linear", "train_remat_full",
 "train_remat_convs", "train_fixconvs", "train_dp_world1", "train_dp_2rank"
-or "cli_dp_2rank", the last two counted in process 0; "op" for K3, which
-is driven through its public op): its launches
+or "cli_dp_2rank", the last two counted in process 0, "train_graphs",
+whose K2 rows also give replay_kernels, the kernel nodes of one replay of
+4 steps; "op" for K3, which is driven through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
@@ -2441,7 +2461,9 @@ def dp_rank_entry(rank, world, backend, store, out_dir, job):
 
     try:
         res = {"world1": dp_world1_job, "step": dp_step_job,
-               "cli": dp_cli_job}[job](rank, world, dev, out_dir, join)
+               "cli": dp_cli_job, "graphs": graphs_nccl_job,
+               "graphs_timed": graphs_timed_job}[job](
+                   rank, world, dev, out_dir, join)
         torch.save(res, os.path.join(out_dir, f"{job}_{rank}.pt"))
     finally:
         if torch.distributed.is_initialized():
@@ -2684,6 +2706,581 @@ def phase_dp_kernels(tmp, dev, copy_gbs):
     return k1, k2b, k2f
 
 
+# ------------------- CUDA graphs of the train step (phase 19) ----
+
+GRAPH_K = 4         # --steps_per_call of phase 19
+GRAPH_TIMED = 5     # eager steps and replays timed (after the warm-up)
+GRAPH_LR = "5e-4"   # lr 5e-4 over two epochs: epoch 1 at 5e-5 (multistep_lr)
+GRAPH_CLIPS = 8     # float32 clips of the dropout, remat and NCCL checks
+                    # (a process's, as DP_LOCAL: BN's late layers span
+                    # enough positions for the f32 bars)
+K2_NODES = {"bn_apply_relu": ("bn_apply_relu_kernel",),
+            "bn_apply_relu_bwd": ("bn_bwd_kernel", "bn_bwd_reduce_kernel")}
+
+
+def release():
+    """Free what the last Experiment held on the card: a scan step refers
+    to itself through its closures, so its graphs and their pool go at the
+    next garbage collection."""
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def graph_kernels(graph, path):
+    """K2's kernel nodes in a captured CUDA graph, from its DOT dump
+    (CUDAGraph.debug_dump): {"bn_apply_relu": forward kernels,
+    "bn_apply_relu_bwd": backward kernels (pass 1 and pass 2), "kernels":
+    every kernel node}."""
+    import re
+
+    graph.debug_dump(path)
+    with open(path) as f:
+        # one chunk a node; a node's label spans several lines
+        nodes = re.split(r'\n"graph_\d+_node_\d+"\[', f.read())[1:]
+    kernels = [c for c in nodes if 'label="{KERNEL' in c]
+    out = {name: sum(1 for c in kernels if any(k in c for k in ks))
+           for name, ks in K2_NODES.items()}
+    out["kernels"] = len(kernels)
+    return out
+
+
+def recording(exp):
+    """Keep the loss of every step `exp`'s trainer takes: wraps its scan
+    step's run, or its single step. -> the list the losses go to."""
+    losses = []
+    if exp.scan_step is not None:
+        run = exp.scan_step.run
+
+        def rec_run(*a, **kw):
+            m = run(*a, **kw)
+            losses.extend(m["loss"].tolist())
+            return m
+
+        exp.scan_step.run = rec_run
+    else:
+        single = exp.train_step
+
+        def rec(*a, **kw):
+            m = single(*a, **kw)
+            losses.append(float(m["loss"]))
+            return m
+
+        rec.state = single.state
+        exp.train_step = rec
+    return losses
+
+
+def graph_parity(tmp, dev, samples, epochs, tag):
+    """Experiment.run() (what cli.main runs) of `epochs` epochs of
+    `samples` synthetic clips at --bs TRAIN_BS, float32, lr GRAPH_LR,
+    from a seeded non-zero Adam state, at --steps_per_call GRAPH_K and at 1:
+    every step's loss within rtol 1e-4, the parameters within atol 2e-5,
+    bit-equality reported. -> (record, the K run's wrapper launches)."""
+    import torch
+
+    from torch_helpers import seed_adam
+    from zeroshotvideoclassification_tpu_torch.train import multistep_lr
+
+    runs = {}
+    for k in (GRAPH_K, 1):
+        args = cli_argv(tmp, dev, "float32", TRAIN_BS, samples,
+                        "--steps_per_call", str(k), "--lr", GRAPH_LR,
+                        "--n_epochs", str(epochs))
+        exp, _, _ = experiment(args, dev)
+        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+        losses = recording(exp)
+        zero_counts()
+        t0 = time.perf_counter()
+        summary = exp.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        runs[k] = {"losses": losses, "summary": summary, "seconds": wall,
+                   "launches": read_counts(),
+                   "step": exp.train_step.state.step,
+                   "count": int(exp.optimizer.count),
+                   "lr": float(exp.optimizer.lr_tensors[0]),
+                   "capture_s": (exp.scan_step.captured["seconds"]
+                                 if exp.scan_step else None),
+                   "params": {n: v.detach().clone() for n, v in
+                              exp.model.named_parameters()}}
+        exp.log.close()
+        del exp
+        release()
+    g, e = runs[GRAPH_K], runs[1]
+    steps = epochs * (-(-samples // TRAIN_BS))
+    check(len(g["losses"]) == len(e["losses"]) == steps
+          and g["step"] == e["step"] == steps
+          and g["count"] == e["count"] == 1000 + steps,
+          f"{tag}: steps {len(g['losses'])} / {len(e['losses'])}, state "
+          f"{g['step']} / {e['step']}, Adam {g['count']} / {e['count']}")
+    rel = max(abs(a - b) / abs(b) for a, b in zip(g["losses"], e["losses"]))
+    dmax = max(float((g["params"][n] - e["params"][n]).abs().max())
+               for n in e["params"])
+    bitwise = g["losses"] == e["losses"] and all(
+        torch.equal(g["params"][n], e["params"][n]) for n in e["params"])
+    say(f"[{tag}] {epochs} epoch(s) of {steps // epochs} float32 steps of "
+        f"{TRAIN_BS} clips through Experiment.run: --steps_per_call "
+        f"{GRAPH_K} (capture {g['capture_s']:.2f} s, run {g['seconds']:.1f} "
+        f"s) against 1 ({e['seconds']:.1f} s): losses rel {rel:.2g} (bar "
+        f"1e-4), parameters {dmax:.3g} apart (bar 2e-5), bit for bit: "
+        f"{bitwise}; last epoch's lr {g['lr']:.3g}; losses {g['losses']}")
+    check(rel <= 1e-4 and dmax <= 2e-5,
+          f"{tag}: grouped against single steps: {rel}, {dmax}")
+    want_lr = multistep_lr(float(GRAPH_LR), epochs)(epochs - 1)
+    check(abs(g["lr"] - want_lr) <= 1e-6 * want_lr,
+          f"{tag}: the last epoch's lr tensor {g['lr']}, want {want_lr}")
+    return ({"loss_rel": rel, "param_max_abs": dmax, "bitwise": bitwise,
+             "steps": steps, "capture_s": g["capture_s"],
+             "seconds": {"graphs": g["seconds"], "eager": e["seconds"]}},
+            g["launches"])
+
+
+def timed_calls(fn, n, per):
+    """n calls of fn, each between two CUDA events and by the host's clock
+    around a synchronise, then n queued back to back; every figure over
+    `per` steps a call. -> dict of ms a step."""
+    import torch
+
+    ev, host = [], []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        a = torch.cuda.Event(enable_timing=True)
+        b = torch.cuda.Event(enable_timing=True)
+        t0 = time.perf_counter()
+        a.record()
+        fn()
+        b.record()
+        torch.cuda.synchronize()
+        host.append((time.perf_counter() - t0) * 1e3 / per)
+        ev.append(a.elapsed_time(b) / per)
+    a = torch.cuda.Event(enable_timing=True)
+    b = torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a.record()
+    for _ in range(n):
+        fn()
+    b.record()
+    torch.cuda.synchronize()
+    return {"event_ms": statistics.median(ev), "host_ms":
+            statistics.median(host), "event_ms_all": ev, "host_ms_all": host,
+            "queued_host_ms": (time.perf_counter() - t0) * 1e3 / (n * per),
+            "queued_event_ms": a.elapsed_time(b) / (n * per)}
+
+
+def graph_timing(tmp, dev, smi):
+    """bf16, 16 clips, --steps_per_call GRAPH_K: the eager step and a
+    replay / K timed in one process, peak memory of both, the capture's
+    time; the K2 kernels one replay launches (37 K and 74 K); then a group
+    of NaN batches: parameters, moments and Adam's count as they were.
+    -> record."""
+    import torch
+
+    exp, host, ce = experiment(cli_argv(
+        tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS, "--steps_per_call",
+        str(GRAPH_K)), dev)
+    scan = exp.scan_step
+    b = to_card(exp, host)
+    batch = (b["x"], b["z"], b["label"], b["weight"])
+    rng = exp.rng.manual_seed(0)
+    for _ in range(TRAIN_WARMUP):
+        exp.train_step(*batch, ce, rng)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    eager = timed_calls(lambda: exp.train_step(*batch, ce, rng), GRAPH_TIMED,
+                        1)
+    eager["peak_GiB"] = torch.cuda.max_memory_allocated() / 2 ** 30
+    torch.cuda.empty_cache()
+    eager["reserved_GiB"] = torch.cuda.memory_reserved() / 2 ** 30
+    for k in range(GRAPH_K):
+        scan.stage(k, *batch)
+    torch.cuda.reset_peak_memory_stats()
+    zero_counts()
+    scan.run(GRAPH_K, ce, rng)  # the first group: eager, then the capture
+    torch.cuda.synchronize()
+    first = read_counts()
+    n = 37 * (2 * GRAPH_K + 1)  # K eager steps, K + 1 captured (not run)
+    check(first == expect(0, n, n) and scan.graphs,
+          f"the first group and the capture counted {first}, want {n}")
+    graph = {"capture_s": scan.captured["seconds"],
+             "first_group_peak_GiB": torch.cuda.max_memory_allocated()
+             / 2 ** 30}
+    torch.cuda.empty_cache()
+    graph["reserved_GiB"] = torch.cuda.memory_reserved() / 2 ** 30
+    zero_counts()
+    graph.update(timed_calls(lambda: scan.run(GRAPH_K, ce, rng), GRAPH_TIMED,
+                             GRAPH_K))
+    check(read_counts() == expect(0, 0, 0), "a replay called a wrapper")
+    nodes = graph_kernels(scan.graphs[GRAPH_K][0],
+                          os.path.join(tmp, "graph.dot"))
+    one = graph_kernels(scan.graphs[1][0], os.path.join(tmp, "graph1.dot"))
+    graph.update(nodes=nodes, nodes_one_step=one)
+    say(f"[train_graphs] bf16 step of {TRAIN_BS} clips: eager "
+        f"{eager['event_ms']:.2f} ms by CUDA events, {eager['host_ms']:.2f} "
+        f"ms by the host's clock (queued {eager['queued_event_ms']:.2f} / "
+        f"{eager['queued_host_ms']:.2f}); a replay of {GRAPH_K} steps / "
+        f"{GRAPH_K}: {graph['event_ms']:.2f} ms by events, "
+        f"{graph['host_ms']:.2f} ms by the host's clock (queued "
+        f"{graph['queued_event_ms']:.2f} / {graph['queued_host_ms']:.2f}); "
+        f"medians of {GRAPH_TIMED}; capture {graph['capture_s']:.2f} s; "
+        f"peak {eager['peak_GiB']:.2f} GiB eager (reserved "
+        f"{eager['reserved_GiB']:.2f} after empty_cache), the first group "
+        f"and its capture {graph['first_group_peak_GiB']:.2f} GiB, "
+        f"reserved with the graphs {graph['reserved_GiB']:.2f} GiB; one "
+        f"replay's kernel nodes {nodes}, the one-step graph's {one}  "
+        f"({smi})")
+    check(nodes["bn_apply_relu"] == 37 * GRAPH_K
+          and nodes["bn_apply_relu_bwd"] == 74 * GRAPH_K,
+          f"K2 kernels in one replay: {nodes}, want {37 * GRAPH_K} / "
+          f"{74 * GRAPH_K}")
+    check(one["bn_apply_relu"] == 37 and one["bn_apply_relu_bwd"] == 74,
+          f"K2 kernels in the one-step graph: {one}")
+
+    # a group of NaN batches: the guard skips every step on the device
+    opt = exp.optimizer
+    params = {n: v.detach().clone() for n, v in exp.model.named_parameters()}
+    moments = [(opt.state[p]["exp_avg"].clone(),
+                opt.state[p]["exp_avg_sq"].clone())
+               for p in exp.model.parameters()]
+    count, skipped = int(opt.count), int(opt.total_notfinite)
+    step0 = scan.state.step
+    bad = torch.full_like(b["x"], float("nan"))
+    for k in range(GRAPH_K):
+        scan.stage(k, bad, *batch[1:])
+    m = scan.run(GRAPH_K, ce, rng)
+    torch.cuda.synchronize()
+    check(not bool(m["finite"].any()) and not bool(
+        torch.isfinite(m["loss"]).any()), f"NaN group's metrics {m}")
+    check(all(torch.equal(v, params[n])
+              for n, v in exp.model.named_parameters()),
+          "a NaN group changed the parameters")
+    check(all(torch.equal(opt.state[p]["exp_avg"], a)
+              and torch.equal(opt.state[p]["exp_avg_sq"], v)
+              for p, (a, v) in zip(exp.model.parameters(), moments)),
+          "a NaN group changed Adam's moments")
+    check(int(opt.count) == count
+          and int(opt.total_notfinite) == skipped + GRAPH_K
+          and scan.state.step == step0 + GRAPH_K,
+          f"a NaN group: Adam count {int(opt.count)} (was {count}), skips "
+          f"{int(opt.total_notfinite)} (was {skipped}), steps "
+          f"{scan.state.step} (was {step0})")
+    say(f"[train_graphs] a replay of {GRAPH_K} NaN batches: every step "
+        f"skipped on the device (Adam's count stays {count}, "
+        f"total_notfinite +{GRAPH_K}, the step count +{GRAPH_K}), "
+        f"parameters and moments bit-equal")
+    exp.log.close()
+    return {"eager": eager, "graph": graph}
+
+
+def debug_nans_epoch(tmp, dev, k, bad_step):
+    """One epoch of 2 * GRAPH_K bf16 steps through the trainer with
+    --debug_nans at --steps_per_call k, the batch of step `bad_step` NaN:
+    FloatingPointError naming that step. -> its message."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+
+    exp, _, _ = experiment(cli_argv(
+        tmp, dev, "bfloat16", TRAIN_BS, 2 * GRAPH_K * TRAIN_BS,
+        "--steps_per_call", str(k), "--debug_nans"), dev)
+    real, seen = train_cli.device_batch, [0]
+
+    def poisoned(*a, **kw):
+        out = real(*a, **kw)
+        seen[0] += 1
+        if seen[0] == bad_step:
+            out["x"] = torch.full_like(out["x"], float("nan"))
+        return out
+
+    train_cli.device_batch = poisoned
+    try:
+        exp.train_one_epoch(0)
+        msg = None
+    except FloatingPointError as e:
+        msg = str(e)
+    finally:
+        train_cli.device_batch = real
+        exp.log.close()
+    check(msg is not None and f"step {bad_step} " in msg,
+          f"--debug_nans at --steps_per_call {k}, NaN step {bad_step}: "
+          f"{msg!r}")
+    return msg
+
+
+def dropout_replays(tmp, dev):
+    """--network resnet18 (the linear head, dropout 0.05) at GRAPH_CLIPS
+    float32 clips and lr 0, one batch in every slot: the losses of two
+    replays differ step by step (new masks each replay), and after the
+    generator is reseeded a replay repeats the eager first group's masks.
+    -> record."""
+    from zeroshotvideoclassification_tpu_torch.train import set_lr
+
+    exp, host, ce = experiment(cli_argv(
+        tmp, dev, "float32", GRAPH_CLIPS, GRAPH_CLIPS, "--steps_per_call",
+        str(GRAPH_K), network="resnet18"), dev)
+    check(exp.model.dropout_rate > 0, "resnet18's head has no dropout")
+    set_lr(exp.optimizer, 0.0)
+    scan = exp.scan_step
+    b = to_card(exp, host_rows(host, slice(0, GRAPH_CLIPS)))
+    for k in range(GRAPH_K):
+        scan.stage(k, b["x"], b["z"], b["label"], b["weight"])
+    rng = exp.rng.manual_seed(7)
+    runs = [scan.run(GRAPH_K, ce, rng)["loss"].tolist() for _ in range(3)]
+    rng.manual_seed(7)
+    again = scan.run(GRAPH_K, ce, rng)["loss"].tolist()
+    exp.log.close()
+
+    def rel(u, v):
+        return [abs(a - c) / abs(c) for a, c in zip(u, v)]
+
+    across = rel(runs[1], runs[2])
+    within = rel(runs[1][1:], runs[1][:-1])
+    reseeded = rel(again, runs[0])
+    say(f"[train_graphs] resnet18, dropout {exp.model.dropout_rate}, lr 0, "
+        f"one batch of {GRAPH_CLIPS} float32 clips in every slot: losses of "
+        f"the eager group {runs[0]}, two replays {runs[1]}, {runs[2]}: "
+        f"replay against replay rel {min(across):.3g}-{max(across):.3g}, "
+        f"step against step {min(within):.3g}-{max(within):.3g}; reseeded, "
+        f"a replay against the eager group {max(reseeded):.3g}")
+    # one mask drawn twice gives the same loss within ~1e-7 (the reseeded
+    # replay against the eager group); new masks move it by ~1e-3
+    check(min(across) > 1e-5 and min(within) > 1e-5,
+          f"dropout masks repeated: {runs}")
+    check(max(reseeded) < 1e-6, f"reseeded replay {again} vs {runs[0]}")
+    return {"losses": runs, "reseeded": again}
+
+
+def remat_group(tmp, dev):
+    """--remat full at GRAPH_CLIPS float32 clips: two groups of GRAPH_K on
+    one batch (the first eager, the second a replay) against 2 GRAPH_K
+    single steps from the same state: losses rtol 1e-4, BN running
+    statistics as far apart as float32 allows and every num_batches_tracked
+    2 GRAPH_K (moved once a step); the recomputed blocks' epilogues are in
+    the graph (72 K forward kernels). -> record."""
+    from torch_helpers import seed_adam
+
+    runs = {}
+    for k in (GRAPH_K, 1):
+        exp, host, ce = experiment(cli_argv(
+            tmp, dev, "float32", GRAPH_CLIPS, GRAPH_CLIPS,
+            "--steps_per_call", str(k), "--remat", "full"), dev)
+        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+        b = to_card(exp, host_rows(host, slice(0, GRAPH_CLIPS)))
+        batch = (b["x"], b["z"], b["label"], b["weight"])
+        stats0 = bn_running(exp.model).clone()
+        if k > 1:
+            for j in range(k):
+                exp.scan_step.stage(j, *batch)
+            losses = [v for _ in range(2) for v in
+                      exp.scan_step.run(k, ce)["loss"].tolist()]
+            nodes = graph_kernels(exp.scan_step.graphs[k][0],
+                                  os.path.join(tmp, "remat.dot"))
+        else:
+            losses = [float(exp.train_step(*batch, ce)["loss"])
+                      for _ in range(2 * GRAPH_K)]
+        tracked = {int(v) for n, v in exp.model.state_dict().items()
+                   if n.endswith("num_batches_tracked")}
+        runs[k] = (losses, bn_running(exp.model) - stats0, tracked)
+        exp.log.close()
+        del exp
+        release()
+    (lg, mg, tg), (le, me, te) = runs[GRAPH_K], runs[1]
+    rel = max(abs(a - c) / abs(c) for a, c in zip(lg, le))
+    off = float((mg - me).abs().max())
+    say(f"[train_graphs] --remat full, {GRAPH_CLIPS} float32 clips: two "
+        f"groups of {GRAPH_K} (eager, replay) against {2 * GRAPH_K} single "
+        f"steps: losses rel {rel:.2g}, running statistics {off:.3g} apart "
+        f"(moved up to {float(me.abs().max()):.3g}), num_batches_tracked "
+        f"{sorted(tg)} / {sorted(te)}; kernel nodes of the replay {nodes}")
+    check(rel <= 1e-4 and tg == te == {2 * GRAPH_K}
+          and off <= 1e-3 * float(me.abs().max()),
+          f"remat under graphs: {rel}, {off}, {tg}, {te}")
+    check(nodes["bn_apply_relu"] == 72 * GRAPH_K
+          and nodes["bn_apply_relu_bwd"] == 74 * GRAPH_K,
+          f"remat graph's K2 kernels {nodes}")
+    return {"loss_rel": rel, "running_stats_max_abs": off, "nodes": nodes}
+
+
+GRAPH_OPTIONS = (("--remat", "convs"), ("--fixconvs",),
+                 ("--network", "c3d"), ("--clip_pool", "embedding"),
+                 ("--head", "linear"))
+
+
+def graph_options(tmp, dev):
+    """The trainer's other options under CUDA graphs (tools/graph_phase.py
+    runs this after phase 19; chip_smoke.py does not): for each of
+    GRAPH_OPTIONS, two groups of 2 float32 steps of GRAPH_CLIPS clips (the
+    first eager, then a replay) against 4 single steps from the same state
+    and generator: losses rtol 1e-4. -> {option: loss rel}."""
+    from torch_helpers import seed_adam
+
+    out = {}
+    for flags in GRAPH_OPTIONS:
+        losses = {}
+        for k in (2, 1):
+            exp, host, ce = experiment(cli_argv(
+                tmp, dev, "float32", GRAPH_CLIPS, GRAPH_CLIPS,
+                "--steps_per_call", str(k), *flags), dev)
+            seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+            b = to_card(exp, host_rows(host, slice(0, GRAPH_CLIPS)))
+            batch = (b["x"], b["z"], b["label"], b["weight"])
+            rng = exp.rng.manual_seed(11)
+            if k > 1:
+                for j in range(k):
+                    exp.scan_step.stage(j, *batch)
+                losses[k] = [v for _ in range(2) for v in
+                             exp.scan_step.run(k, ce, rng)["loss"].tolist()]
+            else:
+                losses[k] = [float(exp.train_step(*batch, ce, rng)["loss"])
+                             for _ in range(4)]
+            exp.log.close()
+            del exp
+            release()
+        rel = max(abs(a - c) / abs(c) for a, c in zip(losses[2], losses[1]))
+        say(f"[train_graphs] {' '.join(flags)}: two groups of 2 float32 "
+            f"steps of {GRAPH_CLIPS} clips (eager, replay) against 4 single "
+            f"steps: losses rel {rel:.2g}; {losses[2]}")
+        check(rel <= 1e-4, f"{flags} under graphs: {rel}")
+        out[" ".join(flags)] = rel
+    RECORD["graph_options"] = out
+    return out
+
+
+def graphs_nccl_job(rank, world, dev, out_dir, join):
+    """Phase 19 in an NCCL group (one process a GPU): two groups of
+    GRAPH_K float32 steps of GRAPH_CLIPS clips a process (eager, then a
+    replay whose all-reduces are captured) against 2 GRAPH_K single steps
+    in the same group from the same state. -> the losses of both and the
+    largest parameter difference."""
+    import torch
+
+    from torch_helpers import seed_adam
+
+    join()
+    rows = slice(rank * GRAPH_CLIPS, (rank + 1) * GRAPH_CLIPS)
+    out = {"backend": torch.distributed.get_backend()}
+    params = {}
+    for k in (GRAPH_K, 1):
+        exp, host, ce = experiment(cli_argv(
+            out_dir, dev, "float32", GRAPH_CLIPS, world * GRAPH_CLIPS,
+            "--steps_per_call", str(k)), dev)
+        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+        b = to_card(exp, host_rows(host, rows))
+        batch = (b["x"], b["z"], b["label"], b["weight"])
+        if k > 1:
+            for j in range(k):
+                exp.scan_step.stage(j, *batch)
+            out[k] = [v for _ in range(2) for v in
+                      exp.scan_step.run(k, ce)["loss"].tolist()]
+        else:
+            out[k] = [float(exp.train_step(*batch, ce)["loss"])
+                      for _ in range(2 * GRAPH_K)]
+        params[k] = {n: v.detach().clone()
+                     for n, v in exp.model.named_parameters()}
+        exp.log.close()
+        del exp
+        release()
+    out["param_max_abs"] = max(float((params[GRAPH_K][n] - params[1][n])
+                                     .abs().max()) for n in params[1])
+    return out
+
+
+def graphs_timed_job(rank, world, dev, out_dir, join):
+    """graphs_nccl_job, then the bf16 step of GRAPH_CLIPS clips a process
+    timed eagerly and as a replay of GRAPH_K steps / GRAPH_K (tools/
+    graph_phase.py --nccl_only; chip_smoke.py does not run it)."""
+    out = graphs_nccl_job(rank, world, dev, out_dir, join)
+    exp, host, ce = experiment(cli_argv(
+        out_dir, dev, "bfloat16", GRAPH_CLIPS, world * GRAPH_CLIPS,
+        "--steps_per_call", str(GRAPH_K)), dev)
+    b = to_card(exp, host_rows(host, slice(rank * GRAPH_CLIPS,
+                                           (rank + 1) * GRAPH_CLIPS)))
+    batch = (b["x"], b["z"], b["label"], b["weight"])
+    for _ in range(TRAIN_WARMUP):
+        exp.train_step(*batch, ce)
+    eager = timed_calls(lambda: exp.train_step(*batch, ce), GRAPH_TIMED, 1)
+    for k in range(GRAPH_K):
+        exp.scan_step.stage(k, *batch)
+    exp.scan_step.run(GRAPH_K, ce)  # the first group, then the capture
+    graph = timed_calls(lambda: exp.scan_step.run(GRAPH_K, ce), GRAPH_TIMED,
+                        GRAPH_K)
+    exp.log.close()
+    out["timed"] = {"eager": eager, "graph": graph}
+    return out
+
+
+def graph_nccl(tmp, timed=False):
+    """graphs_nccl_job (graphs_timed_job where `timed`) in an NCCL group
+    of one process, and of two where the host shows two GPUs: the grouped
+    steps within loss rtol 1e-4 and parameters atol 2e-5 of single steps
+    in the group, the ranks' losses equal. -> {world: record}."""
+    import torch
+
+    nccl = {}
+    for world in (1, 2) if torch.cuda.device_count() >= 2 else (1,):
+        rs = spawn_ranks("graphs_timed" if timed else "graphs", "nccl",
+                         os.path.join(tmp, f"w{world}"), world=world)
+        rel = max(abs(a - c) / abs(c) for r in rs
+                  for a, c in zip(r[GRAPH_K], r[1]))
+        dmax = max(r["param_max_abs"] for r in rs)
+        say(f"[train_graphs] NCCL group of {world}: two groups of "
+            f"{GRAPH_K} float32 steps of {GRAPH_CLIPS} clips a process with "
+            f"the all-reduces captured, against single steps in the group: "
+            f"losses rel {rel:.2g}, parameters {dmax:.3g} apart; ranks' "
+            f"losses equal: {all(r[GRAPH_K] == rs[0][GRAPH_K] for r in rs)}")
+        check(all(r["backend"] == "nccl" for r in rs) and rel <= 1e-4
+              and dmax <= 2e-5, f"NCCL group of {world} under graphs: "
+                                f"{rel}, {dmax}")
+        check(all(r[GRAPH_K] == rs[0][GRAPH_K] for r in rs),
+              "ranks' losses differ")
+        nccl[world] = {"loss_rel": rel, "param_max_abs": dmax}
+        if timed:
+            t = [r["timed"] for r in rs]
+            say(f"[train_graphs] NCCL group of {world}, bf16 step of "
+                f"{GRAPH_CLIPS} clips a process: eager "
+                f"{[round(x['eager']['event_ms'], 2) for x in t]} ms by CUDA "
+                f"events ({[round(x['eager']['host_ms'], 2) for x in t]} by "
+                f"the host's clock), a replay of {GRAPH_K} / {GRAPH_K} "
+                f"{[round(x['graph']['event_ms'], 2) for x in t]} ms "
+                f"({[round(x['graph']['host_ms'], 2) for x in t]}); ranks "
+                f"0..{world - 1}, medians of {GRAPH_TIMED}")
+            nccl[world]["timed"] = t
+    return nccl
+
+
+def phase_graphs(tmp, dev, smi):
+    """Phase 19: --steps_per_call as CUDA graphs of the train step.
+    -> the entry point's launches in the two-epoch run."""
+    import torch
+
+    t0 = time.perf_counter()
+    two, launches = graph_parity(tmp, dev, GRAPH_K * TRAIN_BS * 2, 2,
+                                 "train_graphs")
+    tail, _ = graph_parity(tmp, dev, (GRAPH_K + 2) * TRAIN_BS, 1,
+                           "train_graphs tail")
+    release()
+    timing = graph_timing(tmp, dev, smi)
+    release()
+    msgs = {k: debug_nans_epoch(tmp, dev, k, bad)
+            for k, bad in ((GRAPH_K, GRAPH_K + 2), (1, 2))}
+    say(f"[train_graphs] --debug_nans: {msgs}")
+    release()
+    dropout = dropout_replays(tmp, dev)
+    remat = remat_group(tmp, dev)
+    release()
+    nccl = graph_nccl(tmp)
+    say(f"[train_graphs] phase 19 in {time.perf_counter() - t0:.1f} s")
+    RECORD["train_graphs"] = {
+        "launches": launches, "two_epochs": two, "tail": tail, **timing,
+        "debug_nans": msgs, "dropout": dropout, "remat": remat,
+        "nccl": nccl}
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", default=None,
@@ -2761,6 +3358,9 @@ def main(argv=None):
         _, dp2_launches = phase_dp_2rank(tmp, dev, smi, f32_plain)
         del f32_plain
         cli_dp_launches = phase_dp_cli(tmp, dev, smi)
+        torch.cuda.empty_cache()
+        graph_launches = phase_graphs(tmp, dev, smi)
+        release()
         k4_trace(dev, k4, smi)
 
     outside = [m for m in sys.modules if m.split(".")[0] in (
@@ -2769,10 +3369,10 @@ def main(argv=None):
     src = "zeroshotvideoclassification_tpu_torch/csrc/"
     ops = "zeroshotvideoclassification_tpu/ops/"
 
-    def row(name, source, replaces, path, launches, rec):
+    def row(name, source, replaces, path, launches, rec, **extra):
         """One kernel on one main path: its launches in that path's run
         and its measurements at that path's shapes."""
-        return {"name": name, "path": path, "route": "cuda",
+        return {"name": name, "path": path, "route": "cuda", **extra,
                 "source": src + source, "replaces": ops + replaces,
                 "launches": launches[name],
                 "max_abs_err": rec["max_abs_err"], "ms": rec["ms"],
@@ -2847,6 +3447,18 @@ def main(argv=None):
               ("bn_apply_relu", "bn_apply_relu.cu", k2_at),
               ("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173")),
               recs)],
+        # CUDA graphs of the train step: launches through the wrappers in
+        # the two-epoch run (K1 every batch; K2 in the eager first group
+        # and the capture, none in a replay), and K2's kernel nodes in one
+        # replay of GRAPH_K steps
+        row("video_transform", "video_transform.cu", k1_at, "train_graphs",
+            graph_launches, k1_train),
+        *[row(name, "bn_apply_relu.cu", at, "train_graphs", graph_launches,
+              rec, replay_kernels=RECORD["train_graphs"]["graph"]["nodes"][
+                  name])
+          for name, at, rec in (("bn_apply_relu", k2_at, k2_train),
+                                ("bn_apply_relu_bwd", "bn_pallas.py:173",
+                                 k2b))],
     ]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was never launched on a main path: {kernels}")

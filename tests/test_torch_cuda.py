@@ -943,3 +943,83 @@ def test_engine_on_the_card(cuda, tmp_path):
         assert bn_apply_relu_cuda.launches == k2 + 37
     finally:
         engine.close()
+
+
+@pytest.mark.parametrize("head", ["mlp", "linear"])
+def test_graph_replays_match_eager_steps(cuda, head):
+    """make_scan_train_step(steps=2) on the card: two groups and a tail of
+    one (the first group eager, then the capture; the second group one
+    replay of the two-step graph, the tail one of the one-step graph)
+    against five eager steps of make_train_step from the same state, float32,
+    r2plus1d_18 on 4 clips of 8x32x32: losses rtol 1e-4, parameters atol
+    2e-5, Adam's count and the step count equal. A replay calls no
+    wrapper (the launch counters count the capture, not the replays), a
+    replaced optimizer tensor or another generator raises, and under the
+    linear head (dropout 0.05) two replays of one batch draw other masks."""
+    from zeroshotvideoclassification_tpu_torch.config import Config
+    from zeroshotvideoclassification_tpu_torch.models import get_network
+    from zeroshotvideoclassification_tpu_torch.models.layers import (
+        init_weights,
+    )
+    from zeroshotvideoclassification_tpu_torch.train import (
+        make_optimizer,
+        make_scan_train_step,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(0)
+    ce = rng.normal(size=(5, 300)).astype(np.float32)
+    ce /= np.linalg.norm(ce, axis=1, keepdims=True)
+    data = []
+    for _ in range(5):
+        labels = rng.integers(0, 5, 4).astype(np.int32)
+        x = rng.uniform(-0.5, 0, (4, 1, 8, 32, 32, 3)).astype(np.float32)
+        data.append([torch.from_numpy(a).to(cuda) for a in
+                     (x, ce[labels], labels, np.ones(4, np.float32))])
+    ce_t = torch.from_numpy(ce).to(cuda)
+    runs = {}
+    for grouped in (True, False):
+        m = get_network(Config(network="r2plus1d_18", head=head))
+        init_weights(m, torch.Generator().manual_seed(0))
+        m = m.to(device=cuda, memory_format=torch.channels_last_3d)
+        opt = seed_adam(make_optimizer(m.parameters(), 1e-3), m, seed=1)
+        gen = torch.Generator(cuda).manual_seed(5)
+        if grouped:
+            scan = make_scan_train_step(m, opt, torch.float32, 2)
+            losses = []
+            for start, n in ((0, 2), (2, 2), (4, 1)):
+                for k in range(n):
+                    scan.stage(k, *data[start + k])
+                if start == 2:
+                    before = (bn_apply_relu_cuda.launches,
+                              bn_apply_relu_bwd_cuda.launches)
+                losses += scan.run(n, ce_t, gen)["loss"].tolist()
+            assert (bn_apply_relu_cuda.launches,
+                    bn_apply_relu_bwd_cuda.launches) == before
+            state, scan_opt, scan_gen = scan.state, opt, gen
+        else:
+            step = make_train_step(m, opt, torch.float32)
+            losses = [float(step(*b, ce_t, gen)["loss"]) for b in data]
+            state = step.state
+        runs[grouped] = (losses, {k: v.detach().clone() for k, v in
+                                  m.named_parameters()},
+                         int(opt.count), state.step)
+    (lg, pg, cg, sg), (le, pe, ce_, se) = runs[True], runs[False]
+    assert cg == ce_ == 1005 and sg == se == 5
+    # under dropout the replays draw the eager steps' masks: one generator,
+    # advanced by each replay as far as the eager steps advance it
+    np.testing.assert_allclose(lg, le, rtol=1e-4)
+    for k in pe:
+        torch.testing.assert_close(pg[k], pe[k], atol=2e-5, rtol=0, msg=k)
+    if head == "linear":
+        for k in range(2):
+            scan.stage(k, *data[0])
+        a = scan.run(2, ce_t, scan_gen)["loss"]
+        b = scan.run(2, ce_t, scan_gen)["loss"]
+        assert not torch.equal(a, b)
+        with pytest.raises(ValueError, match="another generator"):
+            scan.run(2, ce_t, torch.Generator(cuda))
+        p0 = next(iter(scan_opt.state))
+        scan_opt.state[p0]["exp_avg"] = scan_opt.state[p0]["exp_avg"].clone()
+        with pytest.raises(RuntimeError, match="replaced"):
+            scan.run(2, ce_t, scan_gen)

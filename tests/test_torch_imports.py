@@ -138,7 +138,8 @@ def _sources():
              os.path.join(ROOT, "tools", "profile_k1.py"),
              os.path.join(ROOT, "tools", "zsl32_resume.py"),
              os.path.join(ROOT, "tools", "profile_dp.py"),
-             os.path.join(ROOT, "tools", "dp_phases.py")]
+             os.path.join(ROOT, "tools", "dp_phases.py"),
+             os.path.join(ROOT, "tools", "graph_phase.py")]
     for d, _, names in os.walk(os.path.dirname(port.__file__)):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     return sorted(files)
@@ -148,8 +149,8 @@ def _sources():
                                   for p in _sources()])
 def test_no_source_imports_the_jax_package(path):
     """No `import` / `from` line of the port, chip_smoke.py or
-    tools/profile_{serve,train,k3,kernels,k1,dp}.py, tools/dp_phases.py or
-    tools/zsl32_resume.py names jax or
+    tools/profile_{serve,train,k3,kernels,k1,dp}.py, tools/dp_phases.py,
+    tools/graph_phase.py or tools/zsl32_resume.py names jax or
     zeroshotvideoclassification_tpu
     (without _torch), nor does an importlib / __import__ call."""
     bad = re.compile(

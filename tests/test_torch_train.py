@@ -613,9 +613,7 @@ def test_cli_main_trains_one_epoch_on_cpu(tmp_path, capsys):
 
 
 @pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "P7b"),
-    (["--debug_nans"], "P11"), (["--steps_per_call", "4"], "P11"),
-    (["--save_samples"], "P11")])
+    (["--tp", "2"], "P7b"), (["--save_samples"], "P11b")])
 def test_cli_main_refuses_what_is_not_ported(flags, item, tmp_path,
                                              monkeypatch):
     """Refused with the ROADMAP item that ports it, before any dataset is
@@ -637,13 +635,14 @@ class _Built(Exception):
 @pytest.mark.parametrize("flags", [
     ["--network", "resnet18"], ["--clip_pool", "embedding"], ["--fixconvs"],
     ["--head", "linear"], ["--network", "c3d"], ["--remat"],
-    ["--remat", "convs"]])
+    ["--remat", "convs"], ["--debug_nans"], ["--steps_per_call", "4"]])
 def test_cli_main_accepts_the_p8_flags(flags, tmp_path, monkeypatch):
-    """Each flag gets through the trainer's checks, and the model it asks
-    for is the JAX package's for the same flags: the same backbone, head,
-    dropout, clip pooling, frozen convs and remat, and the same tensors
-    under the bridge's names. Checked where the datasets would be built,
-    before any is."""
+    """Each flag of P8 (the models and options) and of P11a
+    (--steps_per_call, --debug_nans) gets through the trainer's checks,
+    and the model it asks for is the JAX package's for the same flags: the
+    same backbone, head, dropout, clip pooling, frozen convs and remat, and
+    the same tensors under the bridge's names. Checked where the datasets
+    would be built, before any is."""
     from zeroshotvideoclassification_tpu_torch.config import (
         config_from_namespace,
     )
@@ -670,6 +669,30 @@ def test_cli_main_accepts_the_p8_flags(flags, tmp_path, monkeypatch):
     got = {k: tuple(v.shape) for k, v in pm.state_dict().items()
            if not k.endswith("num_batches_tracked")}
     assert got == jax_leaf_shapes(jm)
+
+
+def test_cli_main_refuses_graphs_on_cuda_under_gloo(tmp_path, monkeypatch):
+    """--steps_per_call 2 on CUDA captures the collectives into CUDA graphs,
+    which gloo cannot give: under a gloo group it raises ValueError naming
+    NCCL, before any dataset is built (and before looking for a GPU); the
+    CPU under the same group is accepted."""
+    import torch.distributed as dist
+
+    def stop(config, wv_model):
+        raise _Built(config)
+
+    monkeypatch.setattr(port_main, "build_datasets", stop)
+    dist.init_process_group("gloo", init_method=f"file://{tmp_path}/store",
+                            rank=0, world_size=1)
+    try:
+        base = ["--dataset", "synthetic", "--save_path", str(tmp_path),
+                "--steps_per_call", "2"]
+        with pytest.raises(ValueError, match="NCCL"):
+            port_main.main(base + ["--device", "cuda"])
+        with pytest.raises(_Built):
+            port_main.main(base + ["--device", "cpu"])
+    finally:
+        dist.destroy_process_group()
 
 
 def test_cli_main_needs_a_gpu_unless_told_otherwise(tmp_path):

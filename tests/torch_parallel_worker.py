@@ -11,6 +11,8 @@ MODE:
            in IN (torch.save of the parent's tensors and weights);
   eval     Experiment.evaluate of the synthetic test table (15 rows) with
            the weights in IN;
+  scan     make_scan_train_step over the batches in IN (groups of
+           `steps`, the last one partial), each process on its shard;
   cli      cli.main.main with the arguments in IN (a JSON list), the files
            this process opened for writing under the run's save path
            recorded by an audit hook;
@@ -132,6 +134,34 @@ def run_unit(world, rank, inp, out):
     torch.save(res, out)
 
 
+def run_scan(world, rank, inp, out):
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.train import (
+        make_optimizer,
+        make_scan_train_step,
+    )
+    from torch_helpers import seed_adam
+
+    st = torch.load(inp, weights_only=True)
+    m = port_model(st["state_dict"], st["arch"])
+    opt = make_optimizer(m.parameters(), st["lr"])
+    seed_adam(opt, m, seed=st["adam_seed"], count=st["adam_count"])
+    scan = make_scan_train_step(m, opt, torch.float32, st["steps"])
+    b = st["batches"][0][0].shape[0] // world
+    sl = slice(rank * b, (rank + 1) * b)
+    losses = []
+    for start in range(0, len(st["batches"]), st["steps"]):
+        group = st["batches"][start:start + st["steps"]]
+        for k, batch in enumerate(group):
+            scan.stage(k, *[t[sl] for t in batch])
+        losses.append(scan.run(len(group), st["class_embed"])["loss"])
+    torch.save({"loss": torch.cat(losses), "count": int(opt.count),
+                "step": scan.state.step,
+                "state_dict": {k: v.detach().clone()
+                               for k, v in m.state_dict().items()}}, out)
+
+
 def run_eval(world, rank, inp, out):
     import torch
 
@@ -224,5 +254,5 @@ if __name__ == "__main__":
         run_jaxcli(world, rank, store, inp, out)
     else:
         join(world, rank, store)
-        {"unit": run_unit, "eval": run_eval, "cli": run_cli}[mode](
-            world, rank, inp, out)
+        {"unit": run_unit, "eval": run_eval, "cli": run_cli,
+         "scan": run_scan}[mode](world, rank, inp, out)

@@ -7,8 +7,10 @@ schedule, iterate the host pipeline (seeded with seed + epoch,
 sample-capped like reference/main.py:208), move each host batch to the
 device (pinned H2D + the transform: K1 for videos, the antialiased
 transform or K4 for still images), take one train step (train/step.py: K2
-forward and backward in every epilogue, guarded Adam), log every
-`log_every` steps; then evaluate every test table zero-shot (full set +
+forward and backward in every epilogue, guarded Adam) or, with
+--steps_per_call K > 1, stage it for a group of K steps, log every
+`log_every` steps (by count, so the cadence does not change with K); then
+evaluate every test table zero-shot (full set +
 the 10-split protocol), track the best mean accuracy, and print the
 reference's per-epoch lines. A still-image training table (--dataset
 sun2both: train on SUN, test on videos) trains with the halved batch.
@@ -58,12 +60,26 @@ uses every device of its mesh; --device cuda:N or cpu runs one process.
       --dataset synthetic --class_total 8 --train_samples 16 --bs 4 \
       --size 32 --clip_len 8 --device cpu --nopretrained
 
+--steps_per_call K (> 1) takes K steps a dispatch, as the JAX package's
+scan-fused step: on a GPU one replay of a CUDA graph of K steps
+(train/step.make_scan_train_step; the run's first group runs eagerly and is
+then captured, once; an epoch's partial last group replays a one-step
+graph), on the CPU the same steps one after the other. The graphs capture
+the collectives of a process group, so a CUDA run under a gloo group
+refuses K > 1 before any dataset is built. --debug_nans reads every
+dispatch's losses and the guard's flags on the host and raises
+FloatingPointError naming the first step that is not finite (the guard has
+skipped its update; a group's later steps were taken); on the eager paths
+(the CPU, or K = 1) the step also runs under
+torch.autograd.detect_anomaly(check_nan=True), so that the error names the
+backward op that made the NaN. Without it nothing syncs: the guard skips
+such a step on the device.
+
 The flags are the JAX trainer's (config.build_arg_parser, the same Config)
 plus --device, which defaults to cuda (cuda:LOCAL_RANK under a process
 group); asking for cuda without a GPU raises. What the port does not do
 yet raises NotImplementedError, naming its ROADMAP item, before any
-dataset is built: --tp > 1 (P7b), and --steps_per_call > 1 /
---save_samples / --debug_nans (P11).
+dataset is built: --tp > 1 (P7b) and --save_samples (P11b).
 """
 
 from __future__ import annotations
@@ -112,6 +128,7 @@ from zeroshotvideoclassification_tpu_torch.parallel import (
     sync_processes,
 )
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    check_capturable,
     group_active,
     local_rank,
     run_local_ranks,
@@ -121,8 +138,10 @@ from zeroshotvideoclassification_tpu_torch.train import (
     host_state,
     load_checkpoint,
     make_optimizer,
+    make_scan_train_step,
     make_train_step,
     multistep_lr,
+    raise_if_not_finite,
     read_meta,
     set_lr,
     warm_start,
@@ -139,9 +158,7 @@ def check_ported(config: Config) -> None:
     yet, naming the ROADMAP item that will."""
     asked = [
         (config.tp > 1, "--tp > 1", "P7b"),
-        (config.steps_per_call > 1, "--steps_per_call > 1", "P11"),
-        (config.save_samples, "--save_samples", "P11"),
-        (config.debug_nans, "--debug_nans", "P11"),
+        (config.save_samples, "--save_samples", "P11b"),
     ]
     for wanted, what, item in asked:
         if wanted:
@@ -250,8 +267,20 @@ class Experiment:
         self.optimizer = make_optimizer(self.model.parameters(), config.lr)
         self.lr_at = multistep_lr(config.lr, config.n_epochs)
         self.dtype = torch_dtype(config.compute_dtype)
-        self.train_step = make_train_step(self.model, self.optimizer,
-                                          compute_dtype=self.dtype)
+        # --steps_per_call K > 1: K steps a dispatch (CUDA graphs on a GPU)
+        # over the same state as the single step, which drains a tail
+        self.scan_step = None
+        if config.steps_per_call > 1:
+            self.scan_step = make_scan_train_step(
+                self.model, self.optimizer, self.dtype,
+                config.steps_per_call)
+            self.train_step = self.scan_step.single
+        else:
+            self.train_step = make_train_step(self.model, self.optimizer,
+                                              compute_dtype=self.dtype)
+        # dropout's masks are drawn where the model is, from one generator
+        # reseeded every epoch (a CUDA graph holds the one it captured with)
+        self.rng = torch.Generator(self.device)
         self.start_epoch = 0
         self.best_acc = 0.0
         base = config.savename(self.n_data)
@@ -362,9 +391,9 @@ class Experiment:
 
         batch_t, model_t = Timer(), Timer()
         losses, accs = [], []
-        # dropout's masks are drawn where the model is; each process draws
-        # its own shard's, as the JAX package draws one over the global batch
-        rng = torch.Generator(self.device).manual_seed(
+        # each process draws its own shard's masks, as the JAX package draws
+        # one over the global batch
+        rng = self.rng.manual_seed(
             (cfg.seed << 16) + epoch + (self.rank << 48))
         it = iter(pipe)
         if cfg.progressbar:
@@ -377,8 +406,40 @@ class Experiment:
                 pass
         i = 0
         last_logged = 0
+        scan = self.scan_step
+        pending = 0  # batches staged in the scan step's slots
+        # the steps that run eagerly, where --debug_nans can name the op
+        eager = scan is None or self.device.type == "cpu"
+
+        def dispatch(call):
+            """Run one dispatch (a step, a group or a tail) and keep its
+            metrics; under --debug_nans read them on the host first."""
+            first = self.train_step.state.step + 1
+            if cfg.debug_nans and eager:
+                try:
+                    with torch.autograd.detect_anomaly(check_nan=True):
+                        metrics = call()
+                except RuntimeError as e:
+                    if "nan values" not in str(e):
+                        raise
+                    raise FloatingPointError(
+                        f"--debug_nans: step {self.train_step.state.step + 1}"
+                        f" is not finite: {e}") from e
+            else:
+                metrics = call()
+            if cfg.debug_nans:
+                raise_if_not_finite(metrics, first)
+            losses.extend(metrics["loss"].reshape(-1).unbind(0))
+            accs.extend(metrics["train_accuracy"].reshape(-1).unbind(0))
+
+        def flush_pending():
+            nonlocal pending
+            if pending:
+                n, pending = pending, 0
+                dispatch(lambda: scan.run(n, class_embed, rng))
 
         def maybe_log():
+            # count-based, so a group of K steps keeps the cadence of one
             nonlocal last_logged
             if len(losses) - last_logged >= cfg.log_every:
                 step = self.train_step.state.step
@@ -401,15 +462,20 @@ class Experiment:
             with model_t:
                 batch = device_batch(host, table.n_clips, cfg.clip_len,
                                      transform_dtype(cfg), self.device)
-                metrics = self.train_step(
-                    batch["x"], batch["z"], batch["label"], batch["weight"],
-                    class_embed, rng)
-                losses.append(metrics["loss"])
-                accs.append(metrics["train_accuracy"])
+                args = batch["x"], batch["z"], batch["label"], batch["weight"]
+                if scan is None:
+                    dispatch(lambda: self.train_step(*args, class_embed, rng))
+                else:
+                    scan.stage(pending, *args)
+                    pending += 1
+                    if pending == scan.steps:
+                        flush_pending()
             maybe_log()
             i += 1
             if i * global_bs > cfg.epoch_sample_cap:  # reference/main.py:208
                 break
+        with model_t:  # a partial last group: through the single step
+            flush_pending()
         maybe_log()
         with model_t:  # the device's queue drains inside the model's time
             loss = float(torch.stack(losses).mean()) if losses else 0.0
@@ -611,6 +677,8 @@ def main(argv=None):
 def _main(args, argv):
     config = config_from_namespace(args)
     check_ported(config)
+    if config.steps_per_call > 1:
+        check_capturable(args.device)
     n_local = local_world(args.device)
     if n_local > 1:
         # a plain launch on a host with several GPUs uses all of them

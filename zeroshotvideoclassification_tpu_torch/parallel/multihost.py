@@ -17,6 +17,12 @@ batch reduce across processes themselves:
   * --resume auto and the run directory are decided on process 0 and
     broadcast (agree_from_process_zero).
 
+Under NCCL these collectives can be captured into a CUDA graph of the
+train step (train/step.make_scan_train_step): the clones of
+_AllReduceSum then allocate in the graph's pool, and the group must have
+run one step eagerly first (its communicator comes up on the first call).
+gloo cannot be captured (check_capturable).
+
 Without a process group every function here is the identity or a no-op,
 so a one-process run takes exactly the path it took before. NCCL is the
 backend on CUDA and gloo on the CPU; a backend that does not come up
@@ -190,6 +196,19 @@ def agree_from_process_zero(s: Optional[str]) -> Optional[str]:
     box = [s]
     dist.broadcast_object_list(box, src=0, device=collective_device())
     return box[0]
+
+
+def check_capturable(device) -> None:
+    """Raise ValueError where a CUDA graph on `device` could not capture
+    this process's collectives: under gloo, which stages CUDA tensors
+    through the host (a copy and a wait that no graph records). NCCL's
+    collectives, and a run without a group, capture."""
+    if (torch.device(device).type == "cuda" and group_active()
+            and dist.get_backend() != "nccl"):
+        raise ValueError(
+            f"CUDA graphs of the train step (--steps_per_call > 1) capture "
+            f"the collectives, which needs the NCCL backend; this process "
+            f"group runs {dist.get_backend()}")
 
 
 def all_reduce_(t: torch.Tensor) -> torch.Tensor:

@@ -17,6 +17,14 @@ the device still runs this one. (torch.optim.Adam's own step keeps its step
 counts on the host and cannot be switched off from the device; GuardedAdam
 keeps Adam's hyper-parameters, param_groups and state keys and replaces only
 step().)
+
+The update can be captured into a CUDA graph (train/step.py's
+make_scan_train_step): the learning rate enters it as one float32 device
+tensor a parameter group, which `set_lr` (and every step outside a capture)
+fills in place from the group's `lr`, so a replay reads the rate of its
+epoch; and a capture raises where a parameter with a gradient has no
+moments yet, which the capture would record as a zero-fill that every
+replay repeated.
 """
 
 from __future__ import annotations
@@ -60,21 +68,39 @@ class GuardedAdam(torch.optim.Adam):
         self.notfinite_count = torch.zeros((), dtype=torch.int32, device=dev)
         self.total_notfinite = torch.zeros((), dtype=torch.int32, device=dev)
         self.last_finite = torch.ones((), dtype=torch.bool, device=dev)
+        # each group's lr as the update reads it, and the value it holds
+        self.lr_tensors = [torch.full((), float(g["lr"]), dtype=torch.float32,
+                                      device=dev) for g in self.param_groups]
+        self._lr_held = [float(g["lr"]) for g in self.param_groups]
+
+    def sync_lr(self) -> None:
+        """Fill each group's lr tensor in place from its `lr` where that
+        changed (an eager fill on the current stream; never inside a
+        capture, which would record the value it held then)."""
+        for i, group in enumerate(self.param_groups):
+            lr = float(group["lr"])
+            if lr != self._lr_held[i]:
+                self.lr_tensors[i].fill_(lr)
+                self._lr_held[i] = lr
 
     @torch.no_grad()
     def step(self, closure=None):
         if closure is not None:
             raise ValueError("GuardedAdam.step takes no closure")
         groups = []
-        for group in self.param_groups:
+        for group, lr in zip(self.param_groups, self.lr_tensors):
             ps = [p for p in group["params"] if p.grad is not None]
             if ps:
-                groups.append((group, ps, [p.grad for p in ps]))
+                groups.append((group, lr, ps, [p.grad for p in ps]))
         if not groups:
             return None
+        capturing = (self.count.is_cuda
+                     and torch.cuda.is_current_stream_capturing())
+        if not capturing:
+            self.sync_lr()
         # max |g| of every gradient: NaN and inf both survive it, and it
         # cannot overflow on a large finite gradient as a sum of squares can
-        norms = torch._foreach_norm([g for _, _, gs in groups for g in gs],
+        norms = torch._foreach_norm([g for *_, gs in groups for g in gs],
                                     float("inf"))
         finite = torch.isfinite(torch.stack(norms)).all()
         keep = finite.to(torch.float32)
@@ -85,12 +111,16 @@ class GuardedAdam(torch.optim.Adam):
         self.count.add_(finite.to(torch.int64))
         t = torch.clamp_min(self.count, 1)  # a skipped first step: no 0/0
         zero = torch.zeros((), dtype=torch.float32, device=keep.device)
-        for group, ps, gs in groups:
+        for group, lr, ps, gs in groups:
             b1, b2 = group["betas"]
             ms, vs = [], []
             for p in ps:
                 st = self.state[p]
                 if not st:
+                    if capturing:
+                        raise RuntimeError(
+                            "GuardedAdam: a parameter without moments in a "
+                            "CUDA graph capture; take one eager step first")
                     st["step"] = self.count
                     st["exp_avg"] = torch.zeros_like(p)
                     st["exp_avg_sq"] = torch.zeros_like(p)
@@ -112,7 +142,7 @@ class GuardedAdam(torch.optim.Adam):
             torch._foreach_add_(d, group["eps"])
             torch._foreach_reciprocal_(d)
             torch._foreach_mul_(d, ms)
-            torch._foreach_mul_(d, keep * group["lr"] / (1.0 - b1 ** t))
+            torch._foreach_mul_(d, keep * lr / (1.0 - b1 ** t))
             torch._foreach_sub_(ps, d)
         return None
 
@@ -125,6 +155,9 @@ def make_optimizer(params, lr: float = 1e-3) -> GuardedAdam:
 
 
 def set_lr(optimizer: torch.optim.Optimizer, lr: float) -> None:
-    """Set the learning rate of every parameter group."""
+    """Set the learning rate of every parameter group (and, for the guarded
+    Adam, fill the device tensors its update reads, in place)."""
     for group in optimizer.param_groups:
         group["lr"] = float(lr)
+    if isinstance(optimizer, GuardedAdam):
+        optimizer.sync_lr()
