@@ -4,8 +4,9 @@ training path, its still-image (SUN) training path with the zero-shot
 evaluation, the temporal conv op, the other models and options of the
 trainer: C3D (trained and served), resnet18 (R3D-18 + the linear head),
 --remat full / convs and --fixconvs, data-parallel training across
-processes (one GPU, or two where the host shows two), and K train steps a
-dispatch as CUDA graphs (--steps_per_call).
+processes (one GPU, or two where the host shows two), K train steps a
+dispatch as CUDA graphs (--steps_per_call), and the head's tensor
+parallelism (--tp).
 
     python3 chip_smoke.py [--json PATH]
 
@@ -160,8 +161,24 @@ result line) if it fails:
      resnet18's dropout draws new masks each replay and the eager masks
      again once the generator is reseeded; one --remat full group against
      single steps (BN statistics moved once a step, 72 x 4 forward
-     kernels); and an NCCL group of one (and of two where the host shows
-     two GPUs) with the all-reduces captured, against single steps.
+     kernels); F4's hold: a ballast tensor leaves F4_LEVELS GiB of the
+     card free before a float32 group of 16 clips is run eagerly and
+     captured, and each level ends in a completed run within the f32 bars
+     of single steps or in torch.OutOfMemoryError, never in another error;
+     and an NCCL group of one (and of two where the host shows two GPUs)
+     with the all-reduces captured, against single steps;
+ 20. --tp 2, the head's tensor parallelism, on two spawned processes (one
+     model group; NCCL on cuda:0 and cuda:1 where the host shows two GPUs,
+     else gloo with both on cuda:0): two float32 steps of 16 clips against
+     phase 16's one process (loss rtol 1e-4, parameters atol 2e-5 with the
+     head's shards made whole), the backbone bit-equal across the
+     processes, launches a process one K1 and 37 / 37 a step, 77
+     data-group, 3 model-group and 1 whole-group all-reduces a step, the
+     bf16 step's time
+     (on one GPU a correctness figure, not a scaling one); cli.main at
+     --tp 2 (one epoch of 2 steps, the evaluation, a checkpoint with the
+     head whole) and a one-process --evaluate of that checkpoint, which
+     gives its accuracy.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
 each main path that launches it ("path": "serve", "train", "train_sun",
@@ -169,7 +186,8 @@ each main path that launches it ("path": "serve", "train", "train_sun",
 "train_remat_convs", "train_fixconvs", "train_dp_world1", "train_dp_2rank"
 or "cli_dp_2rank", the last two counted in process 0, "train_graphs",
 whose K2 rows also give replay_kernels, the kernel nodes of one replay of
-4 steps; "op" for K3, which is driven through its public op): its launches
+4 steps, "train_tp_2rank", counted in process 0; "op" for K3, which is
+driven through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
@@ -2462,7 +2480,8 @@ def dp_rank_entry(rank, world, backend, store, out_dir, job):
     try:
         res = {"world1": dp_world1_job, "step": dp_step_job,
                "cli": dp_cli_job, "graphs": graphs_nccl_job,
-               "graphs_timed": graphs_timed_job}[job](
+               "graphs_timed": graphs_timed_job, "tp_step": tp_step_job,
+               "tp_cli": tp_cli_job, "graphs_tp": graphs_tp_job}[job](
                    rank, world, dev, out_dir, join)
         torch.save(res, os.path.join(out_dir, f"{job}_{rank}.pt"))
     finally:
@@ -2523,13 +2542,20 @@ def dp_cli_job(rank, world, dev, out_dir, join):
     TRAIN_BS, 2 steps, the evaluation, --checkpoint_every 1) with the
     launches counted and every file this process opens to write under the
     save path recorded."""
+    return cli_job(dev, out_dir, join, cli_argv(
+        out_dir, dev, "bfloat16", DP_LOCAL, 2 * TRAIN_BS,
+        "--checkpoint_every", "1"))
+
+
+def cli_job(dev, out_dir, join, args):
+    """cli.main with `args` in this process of a group, the launches
+    counted and every file it opens to write under the save path
+    recorded."""
     import torch
 
     join()
     from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
 
-    args = cli_argv(out_dir, dev, "bfloat16", DP_LOCAL, 2 * TRAIN_BS,
-                    "--checkpoint_every", "1")
     root = os.path.realpath(os.path.join(out_dir, "runs"))
     writes = []
 
@@ -3105,6 +3131,93 @@ def remat_group(tmp, dev):
     return {"loss_rel": rel, "running_stats_max_abs": off, "nodes": nodes}
 
 
+# F4's hold: GiB the ballast leaves free before the first group of the
+# float32 step of TRAIN_BS clips (its eager peak: 11.7 GiB allocated,
+# 13.7 reserved on the H100, tools/f4_probe.py): too little for the
+# steps, twice; enough for the steps, but not also for a capture beside
+# the eager group's cached blocks (where a capture used to fail); plenty
+F4_LEVELS = (0.5, 13.5, 15.0, 40.0)
+
+
+def capture_under_ballast(tmp, dev, smi):
+    """F4's hold: at each of F4_LEVELS, a fresh Experiment (float32,
+    TRAIN_BS clips, --steps_per_call GRAPH_K, the seeded Adam state) gets a
+    ballast tensor that leaves that many GiB of the card free, then runs
+    two groups on one batch (the first eager, then captured; the second a
+    replay). Each level ends in a completed run within phase 19's f32 bars
+    of 2 GRAPH_K single steps from the same state (losses rtol 1e-4,
+    parameters atol 2e-5) or in torch.OutOfMemoryError; any other error
+    fails the phase. -> record."""
+    import torch
+
+    from torch_helpers import seed_adam
+
+    def run(k, level=None):
+        exp, host, ce = experiment(cli_argv(
+            tmp, dev, "float32", TRAIN_BS, TRAIN_BS, "--steps_per_call",
+            str(k)), dev)
+        seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
+        b = to_card(exp, host)
+        batch = (b["x"], b["z"], b["label"], b["weight"])
+        out = {}
+        ballast = None
+        if level is not None:
+            torch.cuda.synchronize()
+            free = torch.cuda.mem_get_info()[0]
+            # whole 2 MiB pages: a block that fills its segment leaves no
+            # free tail in it for a later tensor to pin (the segment then
+            # is released with the ballast)
+            take = max(free - int(level * 2 ** 30), 0) // 2 ** 21 * 2 ** 21
+            ballast = torch.empty(take, dtype=torch.uint8, device=dev)
+            out["free_GiB"] = torch.cuda.mem_get_info()[0] / 2 ** 30
+        try:
+            if k > 1:
+                for j in range(k):
+                    exp.scan_step.stage(j, *batch)
+                out["losses"] = [v for _ in range(2) for v in
+                                 exp.scan_step.run(k, ce)["loss"].tolist()]
+                out["capture_s"] = exp.scan_step.captured["seconds"]
+            else:
+                out["losses"] = [float(exp.train_step(*batch, ce)["loss"])
+                                 for _ in range(2 * GRAPH_K)]
+            torch.cuda.synchronize()
+            out["outcome"] = "completed"
+            out["params"] = {n: v.detach().cpu()
+                             for n, v in exp.model.named_parameters()}
+        except torch.OutOfMemoryError as e:
+            out["outcome"] = "OutOfMemoryError"
+            out["message"] = str(e).splitlines()[0][:200]
+        exp.log.close()
+        del exp, ballast, b, batch
+        release()
+        return out
+
+    ref = run(1)
+    levels = []
+    for level in F4_LEVELS:
+        r = run(GRAPH_K, level)
+        rec = {k: v for k, v in r.items() if k != "params"}
+        rec["level_GiB"] = level
+        if r["outcome"] == "completed":
+            rec["loss_rel"] = max(abs(a - c) / abs(c) for a, c in
+                                  zip(r["losses"], ref["losses"]))
+            rec["param_max_abs"] = max(
+                float((r["params"][n] - ref["params"][n]).abs().max())
+                for n in ref["params"])
+            check(rec["loss_rel"] <= 1e-4 and rec["param_max_abs"] <= 2e-5,
+                  f"F4 hold at {level} GiB: {rec}")
+        levels.append(rec)
+        say(f"[train_graphs] F4 hold: {level} GiB left free ({rec['free_GiB']:.2f}"
+            f" measured) before a group of {GRAPH_K} float32 steps of "
+            f"{TRAIN_BS} clips: {rec['outcome']}"
+            + (f" (capture {rec['capture_s']:.2f} s; losses rel "
+               f"{rec['loss_rel']:.2g}, parameters "
+               f"{rec['param_max_abs']:.3g} from single steps)"
+               if rec["outcome"] == "completed" else
+               f": {rec['message']}") + f"  ({smi})")
+    return levels
+
+
 GRAPH_OPTIONS = (("--remat", "convs"), ("--fixconvs",),
                  ("--network", "c3d"), ("--clip_pool", "embedding"),
                  ("--head", "linear"))
@@ -3150,24 +3263,26 @@ def graph_options(tmp, dev):
     return out
 
 
-def graphs_nccl_job(rank, world, dev, out_dir, join):
+def graphs_nccl_job(rank, world, dev, out_dir, join, tp=1):
     """Phase 19 in an NCCL group (one process a GPU): two groups of
-    GRAPH_K float32 steps of GRAPH_CLIPS clips a process (eager, then a
+    GRAPH_K float32 steps of GRAPH_CLIPS clips a data shard (eager, then a
     replay whose all-reduces are captured) against 2 GRAPH_K single steps
-    in the same group from the same state. -> the losses of both and the
-    largest parameter difference."""
+    in the same group from the same state; at --tp `tp` the processes of a
+    model group share a shard. -> the losses of both and the largest
+    parameter difference."""
     import torch
 
     from torch_helpers import seed_adam
 
     join()
-    rows = slice(rank * GRAPH_CLIPS, (rank + 1) * GRAPH_CLIPS)
+    d = rank // tp
+    rows = slice(d * GRAPH_CLIPS, (d + 1) * GRAPH_CLIPS)
     out = {"backend": torch.distributed.get_backend()}
     params = {}
     for k in (GRAPH_K, 1):
         exp, host, ce = experiment(cli_argv(
-            out_dir, dev, "float32", GRAPH_CLIPS, world * GRAPH_CLIPS,
-            "--steps_per_call", str(k)), dev)
+            out_dir, dev, "float32", GRAPH_CLIPS, world // tp * GRAPH_CLIPS,
+            "--steps_per_call", str(k), "--tp", str(tp)), dev)
         seed_adam(exp.optimizer, exp.model, seed=3, count=1000)
         b = to_card(exp, host_rows(host, rows))
         batch = (b["x"], b["z"], b["label"], b["weight"])
@@ -3252,6 +3367,74 @@ def graph_nccl(tmp, timed=False):
     return nccl
 
 
+def graphs_tp_job(rank, world, dev, out_dir, join):
+    """graphs_nccl_job on a grid of world / TP x TP processes (--tp TP, one
+    data shard of GRAPH_CLIPS clips a model group): the model group's
+    all-reduces captured beside the data group's; then the bf16 step of the
+    shard timed eagerly and as a replay / GRAPH_K (tools/graph_phase.py
+    --tp_grid on four GPUs; chip_smoke.py does not run it)."""
+    out = graphs_nccl_job(rank, world, dev, out_dir, join, tp=TP)
+    from zeroshotvideoclassification_tpu_torch.parallel import grid
+
+    d = grid().data_index
+    exp, host, ce = experiment(cli_argv(
+        out_dir, dev, "bfloat16", GRAPH_CLIPS, world // TP * GRAPH_CLIPS,
+        "--steps_per_call", str(GRAPH_K), "--tp", str(TP)), dev)
+    b = to_card(exp, host_rows(host, slice(d * GRAPH_CLIPS,
+                                           (d + 1) * GRAPH_CLIPS)))
+    batch = (b["x"], b["z"], b["label"], b["weight"])
+    for _ in range(TRAIN_WARMUP):
+        exp.train_step(*batch, ce)
+    eager = timed_calls(lambda: exp.train_step(*batch, ce), GRAPH_TIMED, 1)
+    for k in range(GRAPH_K):
+        exp.scan_step.stage(k, *batch)
+    exp.scan_step.run(GRAPH_K, ce)  # the first group, then the capture
+    graph = timed_calls(lambda: exp.scan_step.run(GRAPH_K, ce), GRAPH_TIMED,
+                        GRAPH_K)
+    out["calls"] = allreduce_calls(exp, batch, ce)
+    exp.log.close()
+    out["timed"] = {"eager": eager, "graph": graph}
+    out["grid"] = [grid().n_data, grid().tp, d, grid().model_index]
+    return out
+
+
+def graph_tp_grid(tmp):
+    """graphs_tp_job on every GPU of the host (TP_GRID of them: a 2 x TP
+    grid): the grouped steps within loss rtol 1e-4 and parameters atol
+    2e-5 of single steps in the grid, the losses of all processes equal,
+    the bf16 step's times. -> record."""
+    import torch
+
+    world = torch.cuda.device_count()
+    check(world >= TP_GRID, f"--tp_grid needs {TP_GRID} GPUs, the host "
+                            f"shows {world}")
+    rs = spawn_ranks("graphs_tp", "nccl", tmp, world=TP_GRID)
+    rel = max(abs(a - c) / abs(c) for r in rs
+              for a, c in zip(r[GRAPH_K], r[1]))
+    dmax = max(r["param_max_abs"] for r in rs)
+    same = all(r[GRAPH_K] == rs[0][GRAPH_K] for r in rs)
+    t = [r["timed"] for r in rs]
+    say(f"[train_tp_grid] NCCL, {TP_GRID} processes as "
+        f"{TP_GRID // TP} x {TP} (grids {[r['grid'] for r in rs]}): two "
+        f"groups of {GRAPH_K} float32 steps of {GRAPH_CLIPS} clips a data "
+        f"shard with the data and model groups' all-reduces captured, "
+        f"against single steps in the grid: losses rel {rel:.2g}, "
+        f"parameters {dmax:.3g} apart; all processes' losses equal: {same}; "
+        f"all-reduces a step by group {rs[0]['calls']}; bf16 step of "
+        f"{GRAPH_CLIPS} clips a data shard: eager "
+        f"{[round(x['eager']['event_ms'], 2) for x in t]} ms by CUDA events "
+        f"({[round(x['eager']['host_ms'], 2) for x in t]} by the host's "
+        f"clock), a replay of {GRAPH_K} / {GRAPH_K} "
+        f"{[round(x['graph']['event_ms'], 2) for x in t]} ms "
+        f"({[round(x['graph']['host_ms'], 2) for x in t]}); medians of "
+        f"{GRAPH_TIMED}")
+    check(all(r["backend"] == "nccl" for r in rs) and rel <= 1e-4
+          and dmax <= 2e-5 and same, f"the 2 x {TP} grid under graphs: "
+                                     f"{rel}, {dmax}, {same}")
+    return {"loss_rel": rel, "param_max_abs": dmax, "timed": t,
+            "calls": rs[0]["calls"], "grids": [r["grid"] for r in rs]}
+
+
 def phase_graphs(tmp, dev, smi):
     """Phase 19: --steps_per_call as CUDA graphs of the train step.
     -> the entry point's launches in the two-epoch run."""
@@ -3272,13 +3455,188 @@ def phase_graphs(tmp, dev, smi):
     dropout = dropout_replays(tmp, dev)
     remat = remat_group(tmp, dev)
     release()
+    ballast = capture_under_ballast(tmp, dev, smi)
     nccl = graph_nccl(tmp)
     say(f"[train_graphs] phase 19 in {time.perf_counter() - t0:.1f} s")
     RECORD["train_graphs"] = {
         "launches": launches, "two_epochs": two, "tail": tail, **timing,
         "debug_nans": msgs, "dropout": dropout, "remat": remat,
-        "nccl": nccl}
+        "ballast": ballast, "nccl": nccl}
     return launches
+
+
+# ------------------- the head's tensor parallelism (phase 20) ----
+
+TP = 2        # --tp of phase 20: one model group of two processes
+TP_GRID = 4   # processes of tools/graph_phase.py --tp_grid: 2 x TP
+
+
+def allreduce_calls(exp, batch, ce):
+    """The all-reduces one train step of `exp` makes, by group: "data"
+    (BN's statistics and their gradients, the loss's weight sum, the head
+    shards' gradients, the metrics), "model" (the head's two and the
+    guard's flag), "world" (the replicated parameters' gradients).
+    -> {group: calls}."""
+    import collections
+
+    import torch
+    import torch.distributed as dist
+
+    from zeroshotvideoclassification_tpu_torch.parallel import grid
+
+    g = grid()
+    names = {id(g.data_group): "data", id(g.model_group): "model"}
+    seen = collections.Counter()
+    orig = dist.all_reduce
+
+    def counting(tensor, *a, **kw):
+        group = kw.get("group")
+        seen["world" if group is None else names.get(id(group),
+                                                     "other")] += 1
+        return orig(tensor, *a, **kw)
+
+    dist.all_reduce = counting
+    try:
+        exp.train_step(*batch, ce)
+        torch.cuda.synchronize()
+    finally:
+        dist.all_reduce = orig
+    return dict(seen)
+
+
+def tp_step_job(rank, world, dev, out_dir, join):
+    """Phase 20 in one process of a 1 x TP grid (--tp TP): two float32 steps
+    on the whole batch of TRAIN_BS clips with this process's shard of the
+    head (parameters saved beside), then the timed bf16 steps with the
+    launches counted, and one step's all-reduces by group."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.parallel import grid
+
+    join()
+    rows = slice(0, TRAIN_BS)
+    losses, params = f32_steps(cli_argv(out_dir, dev, "float32", TRAIN_BS,
+                                        TRAIN_BS, "--tp", str(TP)), dev, rows)
+    path = os.path.join(out_dir, f"params_{rank}.pt")
+    torch.save(params, path)
+    g = grid()
+    timed, exp, b, ce = dp_timed_steps(
+        cli_argv(out_dir, dev, "bfloat16", TRAIN_BS, TRAIN_BS, "--tp",
+                 str(TP)), dev, rows)
+    calls = allreduce_calls(exp, (b["x"], b["z"], b["label"], b["weight"]),
+                            ce)
+    exp.log.close()
+    return {"losses": losses, "params": path, "timed": timed, "calls": calls,
+            "grid": [g.n_data, g.tp, g.data_index, g.model_index],
+            "backend": torch.distributed.get_backend()}
+
+
+def tp_cli_job(rank, world, dev, out_dir, join):
+    """Phase 20's trainer in one process: cli.main at --tp TP, one epoch of
+    2 steps of TRAIN_BS clips (one data shard), the evaluation,
+    --checkpoint_every 1."""
+    return cli_job(dev, out_dir, join, cli_argv(
+        out_dir, dev, "bfloat16", TRAIN_BS, 2 * TRAIN_BS,
+        "--checkpoint_every", "1", "--tp", str(TP)))
+
+
+def phase_tp(tmp, dev, smi, f32_plain):
+    """Phase 20: --tp TP on two spawned processes (NCCL on cuda:0 and
+    cuda:1 where the host shows two GPUs, else gloo with both on cuda:0).
+    Two float32 steps of r2plus1d_18 on TRAIN_BS clips against phase 16's
+    one process (loss rtol 1e-4; parameters atol 2e-5 with the head's
+    shards made whole); the backbone bit-equal across the processes; per
+    process one K1 and 37 / 37 K2 a step, and 77 data-group, 3
+    model-group and 1 whole-group (the replicas' gradients, averaged over
+    the model group) all-reduces a step; the bf16 step's time (on one GPU a
+    correctness figure, not a scaling one); then cli.main at --tp TP with
+    the evaluation and a checkpoint (the head whole in it), and a
+    one-process --evaluate of that checkpoint, which gives its accuracy.
+    -> (backend, process 0's launches)."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+    from zeroshotvideoclassification_tpu_torch.models import bridge
+    from zeroshotvideoclassification_tpu_torch.train import read_checkpoint
+
+    backend = "nccl" if torch.cuda.device_count() >= 2 else "gloo"
+    t0 = time.perf_counter()
+    rs = spawn_ranks("tp_step", backend, tmp)
+    wall = time.perf_counter() - t0
+    l_one, p_one = f32_plain
+    check(all(r["backend"] == backend for r in rs), "backend")
+    check([r["grid"] for r in rs] == [[1, TP, 0, m] for m in range(TP)],
+          f"grids {[r['grid'] for r in rs]}")
+    check(rs[0]["losses"] == rs[1]["losses"],
+          f"processes' losses {[r['losses'] for r in rs]}")
+    shards = [torch.load(r["params"], weights_only=True) for r in rs]
+    same = all(torch.equal(shards[0][k], shards[1][k]) for k in shards[0]
+               if k not in bridge.TP_AXES)
+    check(same, "train_tp_2rank: the backbone differs across the processes")
+    whole = bridge.unshard_head(shards)
+    rel = max(abs(a - b) / abs(b) for a, b in zip(rs[0]["losses"], l_one))
+    dmax = max(float((whole[k] - p_one[k]).abs().max()) for k in p_one)
+    steps = DP_WARMUP + DP_TIMED
+    for r in rs:
+        check(r["timed"]["launches"] == expect(1, 37 * steps, 37 * steps),
+              f"train_tp_2rank launches {r['timed']['launches']}")
+        check(r["calls"] == {"data": 77, "world": 1, "model": 3},
+              f"train_tp_2rank all-reduces a step {r['calls']}")
+    say(f"[train_tp_2rank] {backend}, --tp {TP} on 2 processes "
+        f"{'on cuda:0 and cuda:1' if backend == 'nccl' else 'both on cuda:0'}"
+        f" (one model group, {TRAIN_BS} clips each): 2 float32 steps, losses "
+        f"{rs[0]['losses']} vs {l_one} of one process (rel {rel:.2g}, bar "
+        f"1e-4), parameters with the head gathered {dmax:.3g} apart (bar "
+        f"2e-5), the backbone bit-equal across the processes; launches a "
+        f"process {rs[0]['timed']['launches']} over {steps} steps; "
+        f"all-reduces a step {rs[0]['calls']}")
+    check(rel <= 1e-4 and dmax <= 2e-5,
+          f"train_tp_2rank against one process: {rel}, {dmax}")
+    say(f"[train_tp_2rank] bf16 step of {TRAIN_BS} clips a process: "
+        f"{[round(r['timed']['event_ms'], 2) for r in rs]} ms by CUDA events, "
+        f"{[round(r['timed']['host_ms'], 2) for r in rs]} ms by the host's "
+        f"clock (processes 0, 1; medians of {DP_TIMED}); "
+        + ("both processes share one GPU under gloo: a correctness run, not "
+           "a scaling figure" if backend == "gloo" else "one GPU each")
+        + f"; the steps' run {wall:.1f} s  ({smi})")
+
+    cli = spawn_ranks("tp_cli", backend, tmp)
+    keys = ("loss", "train_accuracy", "synthetic_test_accuracy",
+            "best_accuracy")
+    check(all(cli[0]["summary"][k] == cli[1]["summary"][k] for k in keys),
+          f"cli_tp_2rank summaries {[r['summary'] for r in cli]}")
+    check(cli[1]["writes"] == [], f"process 1 wrote {cli[1]['writes']}")
+    lasts = [w for w in cli[0]["writes"] if w.endswith("last.npz")]
+    check(bool(lasts), f"process 0 wrote {cli[0]['writes']}")
+    for r in cli:  # 2 steps and one evaluation dispatch of 16 videos
+        check(r["launches"] == expect(3, 37 * 3, 37 * 2),
+              f"cli_tp_2rank launches {r['launches']}")
+    run = os.path.dirname(os.path.join(cli[0]["root"], lasts[0]))
+    fc1 = read_checkpoint(os.path.join(run, "last.npz"))[0]["head/fc1/w"]
+    check(fc1.shape == (512, 512), f"the checkpoint's fc1 {fc1.shape}")
+    ckpt = os.path.join(run, "checkpoint.npz")
+    if not os.path.exists(ckpt):  # accuracy 0: no best checkpoint
+        ckpt = os.path.join(run, "last.npz")
+    acc = train_cli.main(cli_argv(os.path.join(tmp, "tp_eval"), dev,
+                                  "bfloat16", TRAIN_BS, 2 * TRAIN_BS,
+                                  "--evaluate", "--weights", ckpt))
+    torch.cuda.synchronize()
+    want = cli[0]["summary"]["synthetic_test_accuracy"]
+    say(f"[cli_tp_2rank] {backend}: cli.main --tp {TP} on 2 processes in "
+        f"{cli[0]['seconds']:.1f} s: loss {cli[0]['summary']['loss']:.5f}, "
+        f"test accuracy {want:.1f} on both; process 0 wrote "
+        f"{len(cli[0]['writes'])} files (fc1 whole: {tuple(fc1.shape)}), "
+        f"process 1 none; launches a process {cli[0]['launches']}; "
+        f"--evaluate of {os.path.basename(ckpt)} on one process: "
+        f"{acc['synthetic_test_accuracy']:.1f}  ({smi})")
+    check(acc["synthetic_test_accuracy"] == want,
+          f"--evaluate of the --tp {TP} checkpoint: {acc} vs {want}")
+    RECORD["train_tp_2rank"] = {
+        "backend": backend, "loss_rel": rel, "param_max_abs": dmax,
+        "timed": [r["timed"] for r in rs], "calls": rs[0]["calls"],
+        "seconds": wall, "cli": [r["summary"] for r in cli],
+        "cli_launches": [r["launches"] for r in cli], "evaluate": acc}
+    return backend, rs[0]["timed"]["launches"]
 
 
 def main(argv=None):
@@ -3356,10 +3714,12 @@ def main(argv=None):
         dp1_launches, f32_plain = phase_dp_world1(tmp, smi)
         torch.cuda.empty_cache()
         _, dp2_launches = phase_dp_2rank(tmp, dev, smi, f32_plain)
-        del f32_plain
         cli_dp_launches = phase_dp_cli(tmp, dev, smi)
         torch.cuda.empty_cache()
         graph_launches = phase_graphs(tmp, dev, smi)
+        release()
+        _, tp_launches = phase_tp(tmp, dev, smi, f32_plain)
+        del f32_plain
         release()
         k4_trace(dev, k4, smi)
 
@@ -3459,6 +3819,15 @@ def main(argv=None):
           for name, at, rec in (("bn_apply_relu", k2_at, k2_train),
                                 ("bn_apply_relu_bwd", "bn_pallas.py:173",
                                  k2b))],
+        # the head's tensor parallelism: a process of the 1 x TP grid steps
+        # on the whole batch of TRAIN_BS clips, the train row's shapes;
+        # launches counted in process 0 (process 1's are held equal)
+        *[row(name, source, at, "train_tp_2rank", tp_launches, rec)
+          for (name, source, at), rec in zip((
+              ("video_transform", "video_transform.cu", k1_at),
+              ("bn_apply_relu", "bn_apply_relu.cu", k2_at),
+              ("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173")),
+              (k1_train, k2_train, k2b))],
     ]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was never launched on a main path: {kernels}")

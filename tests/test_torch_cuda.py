@@ -9,6 +9,8 @@ repository's conftest (which sets up JAX):
     python -m pytest --noconftest -p no:cacheprovider -m cuda tests/test_torch_cuda.py
 """
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -1023,3 +1025,69 @@ def test_graph_replays_match_eager_steps(cuda, head):
         scan_opt.state[p0]["exp_avg"] = scan_opt.state[p0]["exp_avg"].clone()
         with pytest.raises(RuntimeError, match="replaced"):
             scan.run(2, ce_t, scan_gen)
+
+
+def test_capture_under_ballast_completes_or_raises_oom(cuda):
+    """F4: a ballast tensor leaves half of the eager step's working set
+    free, then three times it, before make_scan_train_step(steps=2) runs a
+    group eagerly, captures it and replays it (r2plus1d_18, float32, 4
+    clips of 8x32x32, after one eager step that fills cuDNN's plan cache and
+    the allocator's cache). Each run completes, its losses within rtol 1e-4
+    of the same eager steps, or raises torch.OutOfMemoryError; no other
+    error comes out of the capture."""
+    from zeroshotvideoclassification_tpu_torch.config import Config
+    from zeroshotvideoclassification_tpu_torch.models import get_network
+    from zeroshotvideoclassification_tpu_torch.models.layers import (
+        init_weights,
+    )
+    from zeroshotvideoclassification_tpu_torch.train import (
+        make_optimizer,
+        make_scan_train_step,
+        make_train_step,
+    )
+
+    rng = np.random.default_rng(0)
+    ce = rng.normal(size=(5, 300)).astype(np.float32)
+    ce /= np.linalg.norm(ce, axis=1, keepdims=True)
+    labels = rng.integers(0, 5, 4).astype(np.int32)
+    x = rng.uniform(-0.5, 0, (4, 1, 8, 32, 32, 3)).astype(np.float32)
+    batch = [torch.from_numpy(a).to(cuda) for a in
+             (x, ce[labels], labels, np.ones(4, np.float32))]
+    ce_t = torch.from_numpy(ce).to(cuda)
+
+    def model():
+        m = get_network(Config(network="r2plus1d_18"))
+        init_weights(m, torch.Generator().manual_seed(0))
+        m = m.to(device=cuda, memory_format=torch.channels_last_3d)
+        return m, seed_adam(make_optimizer(m.parameters(), 1e-3), m, seed=1)
+
+    m, opt = model()
+    step = make_train_step(m, opt, torch.float32)
+    torch.cuda.synchronize()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    want = [float(step(*batch, ce_t)["loss"]) for _ in range(5)]
+    work = torch.cuda.max_memory_allocated() - base
+    del m, opt, step
+    outcomes = []
+    for level in (work // 2, 3 * work):
+        m, opt = model()
+        scan = make_scan_train_step(m, opt, torch.float32, 2)
+        scan.single(*batch, ce_t)
+        for k in range(2):
+            scan.stage(k, *batch)
+        torch.cuda.synchronize()
+        free = torch.cuda.mem_get_info()[0]
+        ballast = torch.empty(max(free - level, 0) // 2 ** 21 * 2 ** 21,
+                              dtype=torch.uint8, device=cuda)
+        try:
+            got = [v for _ in range(2)
+                   for v in scan.run(2, ce_t)["loss"].tolist()]
+            np.testing.assert_allclose(got, want[1:], rtol=1e-4)
+            outcomes.append("completed")
+        except torch.OutOfMemoryError:
+            outcomes.append("OutOfMemoryError")
+        del ballast, scan, m, opt
+        gc.collect()
+        torch.cuda.empty_cache()
+    assert len(outcomes) == 2

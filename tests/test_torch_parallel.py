@@ -124,8 +124,7 @@ SHAPES = [((-1,), ("data",)), ((2,), ("data",)), ((4,), ("data",)),
 @pytest.mark.parametrize("shape,axes", SHAPES)
 def test_make_mesh_matches_jax(shape, axes, n):
     """The same shapes fail with the same message and the same shapes give
-    the same axis sizes; a 'model' axis above 1, which the JAX package
-    builds, is not ported (P7b)."""
+    the same axis sizes, a 'model' axis above 1 (--tp) too."""
     try:
         want = jax_make_mesh(shape, axes, devices=jax.devices()[:n])
     except ValueError as e:
@@ -133,12 +132,7 @@ def test_make_mesh_matches_jax(shape, axes, n):
             make_mesh(shape, axes, n)
         assert str(got.value) == str(e)
         return
-    sizes = dict(zip(axes, want.devices.shape))
-    if sizes.get("model", 1) > 1:
-        with pytest.raises(NotImplementedError, match="P7b"):
-            make_mesh(shape, axes, n)
-    else:
-        assert make_mesh(shape, axes, n) == sizes
+    assert make_mesh(shape, axes, n) == dict(zip(axes, want.devices.shape))
 
 
 def test_make_mesh_defaults_to_the_group():

@@ -612,8 +612,7 @@ def test_cli_main_trains_one_epoch_on_cpu(tmp_path, capsys):
         assert meta["accuracy"] == out["best_accuracy"]
 
 
-@pytest.mark.parametrize("flags,item", [
-    (["--tp", "2"], "P7b"), (["--save_samples"], "P11b")])
+@pytest.mark.parametrize("flags,item", [(["--save_samples"], "P11b")])
 def test_cli_main_refuses_what_is_not_ported(flags, item, tmp_path,
                                              monkeypatch):
     """Refused with the ROADMAP item that ports it, before any dataset is

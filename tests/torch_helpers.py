@@ -139,14 +139,23 @@ def seed_adam(optimizer, model: nn.Module, seed: int, count: int = 1000):
     lr * g / |g|, so two runs whose gradients differ only in float32
     summation order land up to 2 * lr apart wherever a gradient entry is
     near zero; from this state such noise moves a weight by < 1e-6 while the
-    update itself moves it by ~1e-4."""
+    update itself moves it by ~1e-4. A model whose mlp head holds one
+    shard of --tp (ZeroShotModel.tp) gets that shard of the whole head's
+    moments: the same draws as the whole model's."""
+    from zeroshotvideoclassification_tpu_torch.models import bridge
+
     g = torch.Generator().manual_seed(seed)
     optimizer.count.fill_(int(count))
-    for p in model.parameters():
+    tp, index = getattr(model, "tp", (1, 0))
+    for key, p in model.named_parameters():
+        shape = list(p.shape)
+        if key in bridge.TP_AXES:
+            shape[bridge.TP_AXES[key]] *= tp
+        m = 3e-3 * torch.randn(shape, generator=g)
+        v = 1e-3 * (torch.rand(shape, generator=g) * 1.5 + 0.5)
         st = optimizer.state[p]
         st["step"] = optimizer.count
-        st["exp_avg"] = (3e-3 * torch.randn(p.shape, generator=g)).to(
-            p.device)
-        st["exp_avg_sq"] = (1e-3 * (torch.rand(p.shape, generator=g) * 1.5
-                                    + 0.5)).to(p.device)
+        for slot, t in (("exp_avg", m), ("exp_avg_sq", v)):
+            st[slot] = bridge.shard_head({key: t}, tp, index)[key].to(
+                p.device)
     return optimizer

@@ -17,7 +17,14 @@ MODE:
            this process opened for writing under the run's save path
            recorded by an audit hook;
   jaxcli   the JAX package's cli.main.main under jax.distributed, one CPU
-           device a process (STORE is then the coordinator's address).
+           device a process (STORE is then the coordinator's address);
+  tp       the grid of --tp (IN's "tp"): its groups, the model-group
+           collectives and their gradients, two float32 train steps with a
+           sharded mlp head on this process's data shard, the guard with a
+           non-finite gradient in one shard, and a NaN batch on the last
+           process;
+  tp_epoch one epoch of an Experiment with the arguments in IN (a JSON
+           list), this process's parameters saved.
 OUT gets a torch.save (unit, eval) or JSON (cli, jaxcli) of the results.
 Only the jaxcli mode imports JAX.
 """
@@ -226,6 +233,108 @@ def run_cli(world, rank, inp, out):
                    "process_count": torch.distributed.get_world_size()}, f)
 
 
+def run_tp(world, rank, inp, out):
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.models import bridge
+    from zeroshotvideoclassification_tpu_torch.parallel import multihost as mh
+    from zeroshotvideoclassification_tpu_torch.train import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    data = torch.load(inp, weights_only=True)
+    g = mh.init_grid(data["tp"])
+    res = {"grid": [g.n_data, g.tp, g.data_index, g.model_index]}
+    # --- the collectives ----------------------------------------------------
+    res["gather_model"] = mh.gather_model(
+        torch.arange(6.0).reshape(2, 3) + 10 * rank, 1)
+    res["gather_rows"] = mh.gather_rows(
+        torch.arange(6.0).reshape(2, 3) + 10 * g.data_index)
+    res["agreed"] = [bool(mh.agree_finite(torch.tensor(rank != 1))),
+                     bool(mh.agree_finite(torch.tensor(True)))]
+    a = torch.ones(3, requires_grad=True)
+    with torch.enable_grad():
+        y = mh.reduce_from_model(mh.copy_to_model(a) * (g.model_index + 1.0))
+        y.sum().backward()
+    res["reduced"], res["copy_grad"] = y.detach(), a.grad
+
+    # --- two float32 steps on this process's data shard ---------------------
+    st = data["step"]
+    m = port_model(st["state_dict"], st["arch"]).shard_head(g.tp,
+                                                           g.model_index)
+    opt = make_optimizer(m.parameters(), st["lr"])
+    bridge.adam_from_jax(m, opt, st["mu"], st["nu"], st["count"])
+    step = make_train_step(m, opt, compute_dtype=torch.float32)
+    b = st["batches"][0][0].shape[0] // g.n_data
+    sl = slice(g.data_index * b, (g.data_index + 1) * b)
+    metrics = []
+    for x, z, labels, weight in st["batches"]:
+        r = step(x[sl], z[sl], labels[sl], weight[sl], st["class_embed"])
+        metrics.append((float(r["loss"]), float(r["train_accuracy"])))
+
+    def snapshot():  # a NaN batch poisons BN's running statistics
+        return ({k: v.detach().clone() for k, v in m.named_parameters()},
+                {k: (opt.state[p]["exp_avg"].clone(),
+                     opt.state[p]["exp_avg_sq"].clone())
+                 for k, p in m.named_parameters()}, int(opt.count))
+
+    sd, moments, count = snapshot()
+    res["step"] = {"metrics": metrics, "count": count,
+                   "state_dict": {k: v.detach().clone()
+                                  for k, v in m.state_dict().items()}}
+
+    # --- the guard: a non-finite gradient in the shards of model index 1 ----
+    for p in m.parameters():
+        p.grad = torch.zeros_like(p)
+    if g.model_index == 1:
+        m.output2emb_proj.layers[0].weight.grad[0, 0] = float("nan")
+    opt.step()
+    after = snapshot()
+    res["guard"] = {"finite": bool(opt.last_finite),
+                    "unchanged": _same((sd, moments, count), after)}
+
+    # --- a NaN in the last process's batch ----------------------------------
+    x, z, labels, weight = (t[sl] for t in st["batches"][0])
+    if rank == world - 1:
+        x = x.clone()
+        x[0] = float("nan")
+    r = step(x, z, labels, weight, st["class_embed"])
+    res["nan"] = {"finite": bool(r["finite"]),
+                  "unchanged": _same((sd, moments, count), snapshot())}
+    torch.save(res, out)
+
+
+def _same(a, b):
+    """Two snapshots (parameters, moments, count) equal bit for bit."""
+    import torch
+
+    (sa, ma, ca), (sb, mb, cb) = a, b
+    return (ca == cb and all(torch.equal(sa[k], sb[k]) for k in sa)
+            and all(torch.equal(x, y) for k in ma
+                    for x, y in zip(ma[k], mb[k])))
+
+
+def run_tp_epoch(world, rank, inp, out):
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as port_main
+
+    with open(inp) as f:
+        argv = json.load(f)
+    cfg = port_main.config_from_namespace(port_main.build_arg_parser()
+                                          .parse_args(argv))
+    exp = port_main.Experiment(cfg, port_main.build_datasets(cfg, None),
+                               device="cpu")
+    summary = exp.train_one_epoch(0)
+    exp.log.close()
+    g = exp.grid
+    torch.save({"summary": summary, "seed": exp.rng.initial_seed(),
+                "grid": [g.n_data, g.tp, g.data_index, g.model_index],
+                "state_dict": {k: v.detach().clone() for k, v in
+                               exp.model.state_dict().items()}}, out)
+
+
 def run_jaxcli(world, rank, coord, inp, out):
     import jax
 
@@ -255,4 +364,5 @@ if __name__ == "__main__":
     else:
         join(world, rank, store)
         {"unit": run_unit, "eval": run_eval, "cli": run_cli,
-         "scan": run_scan}[mode](world, rank, inp, out)
+         "scan": run_scan, "tp": run_tp,
+         "tp_epoch": run_tp_epoch}[mode](world, rank, inp, out)

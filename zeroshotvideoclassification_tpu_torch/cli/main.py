@@ -41,8 +41,9 @@ Every model of the JAX package trains here (models/heads.get_network):
 linear head), --head mlp / linear, --clip_pool feature / embedding,
 --fixconvs, --remat [full|convs]. The linear and C3D heads' dropout draws
 its masks from a generator on the model's device, seeded per epoch with
-(seed << 16) + epoch, plus rank << 48 on the processes of a group (each
-draws its own shard's masks).
+(seed << 16) + epoch, plus data index << 48 on the processes of a group
+(each data shard draws its own masks; the processes of a model group, which
+see the same rows, draw the same).
 
 Data parallelism (parallel/): under torchrun (its WORLD_SIZE / RANK /
 LOCAL_RANK), or where a caller opened a process group (as the tests' and
@@ -59,6 +60,24 @@ uses every device of its mesh; --device cuda:N or cpu runs one process.
   torchrun --nproc_per_node 2 -m zeroshotvideoclassification_tpu_torch.cli.main \
       --dataset synthetic --class_total 8 --train_samples 16 --bs 4 \
       --size 32 --clip_len 8 --device cpu --nopretrained
+
+--tp N (the head's tensor parallelism, as the JAX package's 'model' mesh
+axis): the P processes form a (P / N) x N grid (parallel.init_grid; rank r
+at data r // N, model r % N). The N processes of a model group read the
+same data shard of each global batch of --bs x P / N, and each holds one
+shard of the mlp head (models/heads.MLP.shard: fc1's columns, fc2's rows
+in the JAX layout) beside a replica of the backbone; BN statistics, the
+loss and the shards' gradients are summed over the data group, the
+replicas' gradients over every process / N, and the head's product over
+the model group. The linear and C3D heads are replicated.
+Checkpoints hold the head whole (process 0 gathers its model group's
+shards), so a --tp 2 checkpoint loads at --tp 1 in either package and the
+other way round. A --tp that does not divide the processes, or the mlp
+head's 512 features, raises ValueError before any dataset is built.
+
+  torchrun --nproc_per_node 2 -m zeroshotvideoclassification_tpu_torch.cli.main \
+      --dataset synthetic --class_total 8 --train_samples 16 --bs 4 \
+      --size 32 --clip_len 8 --device cpu --nopretrained --tp 2
 
 --steps_per_call K (> 1) takes K steps a dispatch, as the JAX package's
 scan-fused step: on a GPU one replay of a CUDA graph of K steps
@@ -79,7 +98,7 @@ The flags are the JAX trainer's (config.build_arg_parser, the same Config)
 plus --device, which defaults to cuda (cuda:LOCAL_RANK under a process
 group); asking for cuda without a GPU raises. What the port does not do
 yet raises NotImplementedError, naming its ROADMAP item, before any
-dataset is built: --tp > 1 (P7b) and --save_samples (P11b).
+dataset is built: --save_samples (P11b).
 """
 
 from __future__ import annotations
@@ -117,9 +136,13 @@ from zeroshotvideoclassification_tpu_torch.eval import (
     split_protocol,
 )
 from zeroshotvideoclassification_tpu_torch.models import get_network
+from zeroshotvideoclassification_tpu_torch.models.heads import (
+    check_tensor_parallel,
+)
 from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
 from zeroshotvideoclassification_tpu_torch.parallel import (
     agree_from_process_zero,
+    init_grid,
     make_mesh,
     maybe_initialize,
     process_count,
@@ -129,6 +152,7 @@ from zeroshotvideoclassification_tpu_torch.parallel import (
 )
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     check_capturable,
+    destroy,
     group_active,
     local_rank,
     run_local_ranks,
@@ -157,7 +181,6 @@ def check_ported(config: Config) -> None:
     """Raise NotImplementedError for every request the port cannot honour
     yet, naming the ROADMAP item that will."""
     asked = [
-        (config.tp > 1, "--tp > 1", "P7b"),
         (config.save_samples, "--save_samples", "P11b"),
     ]
     for wanted, what, item in asked:
@@ -200,9 +223,11 @@ def eval_batch_size(global_bs: int, n_clips: int, n_data: int,
     batch and eval numerics are per-sample (running-stat BN), so a bigger
     batch only changes the zero-weight tail padding. Rounded up to a
     multiple of lcm(n_data, process_count) so batches both shard evenly over
-    the devices and split evenly across processes (in the port both are
-    the number of processes: one device each), then capped at the table
-    size (same rounding) so tiny test sets don't dispatch mostly padding.
+    the devices and split evenly across processes (the port's trainer
+    passes process_count 1, as the JAX package on one process over the
+    same mesh, and splits the batch over its n_data data shards), then
+    capped at the table size (same rounding) so tiny test sets don't
+    dispatch mostly padding.
 
     clip_budget == 0 restores the reference batch sizing EXACTLY (no clip
     floor and no tiny-table cap — only the divisibility rounding).
@@ -244,16 +269,15 @@ class Experiment:
         torch.backends.cuda.matmul.allow_tf32 = False
         torch.backends.cudnn.benchmark = True
         self.rank, self.world = process_index(), process_count()
-        self.n_data = make_mesh(config.mesh_shape, config.mesh_axes,
-                                self.world).get("data", 1)
-        # reference: bs * n_gpus (main.py:61-63); each process feeds its
-        # lockstep share of the global batch
+        mesh = make_mesh(config.mesh_shape, config.mesh_axes, self.world)
+        self.n_data = mesh.get("data", 1)
+        # every data group and model group, before the first collective
+        self.grid = init_grid(mesh.get("model", 1))
+        # reference: bs * n_gpus (main.py:61-63); each data shard (a model
+        # group's processes share theirs) is a lockstep share of the
+        # global batch
         self.global_bs = config.bs * self.n_data
-        if self.global_bs % self.world:
-            raise ValueError(
-                f"global batch {self.global_bs} not divisible by "
-                f"process_count {self.world}; adjust --bs")
-        self.local_bs = self.global_bs // self.world
+        self.local_bs = self.global_bs // self.n_data
         train_tables = datasets.get("training") or []
         self.train_bs, self.train_local_bs = self.global_bs, self.local_bs
         if (train_tables and train_tables[0].loader == "image"
@@ -262,6 +286,8 @@ class Experiment:
             self.train_bs, self.train_local_bs = self._image_train_batch()
         self.model = get_network(config)
         init_weights(self.model, torch.Generator().manual_seed(config.seed))
+        # --tp: this process's shard of the whole (seeded) head
+        self.model.shard_head(self.grid.tp, self.grid.model_index)
         self.model = self.model.to(device=self.device,
                                    memory_format=torch.channels_last_3d)
         self.optimizer = make_optimizer(self.model.parameters(), config.lr)
@@ -391,10 +417,10 @@ class Experiment:
 
         batch_t, model_t = Timer(), Timer()
         losses, accs = [], []
-        # each process draws its own shard's masks, as the JAX package draws
-        # one over the global batch
+        # each data shard draws its own masks, as the JAX package draws one
+        # over the global batch; a model group's processes draw the same
         rng = self.rng.manual_seed(
-            (cfg.seed << 16) + epoch + (self.rank << 48))
+            (cfg.seed << 16) + epoch + (self.grid.data_index << 48))
         it = iter(pipe)
         if cfg.progressbar:
             try:
@@ -497,22 +523,19 @@ class Experiment:
         The reference halves the image-train batch (dataset.py:26:
         `opt.bs // 2 if ... 'image' in opt.dataset ...`) — each SUN sample
         inflates to n_clips*clip_len synthetic frames, so memory per sample
-        doubles vs a video clip; halved per device. The halved global batch
-        must split evenly across the processes."""
+        doubles vs a video clip; halved per device, each data shard a
+        share."""
         global_bs = max(self.config.bs // 2, 1) * self.n_data
-        if global_bs % self.world:
-            raise ValueError(
-                f"halved image-train global batch {global_bs} not "
-                f"divisible by process_count {self.world}; adjust --bs")
-        return global_bs, global_bs // self.world
+        return global_bs, global_bs // self.n_data
 
     # -------------------------------------------------------------- eval ----
     def evaluate(self, table: VideoTable, epoch: int) -> Dict[str, float]:
         cfg = self.config
+        # the JAX package's global batch on one process over the same mesh
+        # (its lcm(n_data, 1) rounding), split over the data shards
         eval_bs = eval_batch_size(self.global_bs, table.n_clips, self.n_data,
-                                  self.world, len(table),
-                                  cfg.eval_clip_budget)
-        pipe = HostPipeline(shard_table(table), cfg, eval_bs // self.world,
+                                  1, len(table), cfg.eval_clip_budget)
+        pipe = HostPipeline(shard_table(table), cfg, eval_bs // self.n_data,
                             seed=cfg.seed)
         source = pipe
         if cfg.progressbar:
@@ -602,14 +625,16 @@ class Experiment:
             improved = mean_acc > self.best_acc
             # --evaluate is read-only: it writes no checkpoint; the
             # replicas are equal, so process 0 writes the one file
-            save_best = improved and not cfg.evaluate and self.writer
+            save_best = improved and not cfg.evaluate
             save_last = bool(cfg.checkpoint_every and not cfg.evaluate
-                             and (epoch + 1) % cfg.checkpoint_every == 0
-                             and self.writer)
-            if save_best or save_last:
-                # the state comes to host numpy here, on this thread; the
-                # writer thread writes it while the next epoch runs
+                             and (epoch + 1) % cfg.checkpoint_every == 0)
+            if (save_best or save_last) and self.grid.data_index == 0:
+                # the state comes to host numpy here, on this thread (under
+                # --tp process 0's model group gathers the head's shards);
+                # the writer thread writes it while the next epoch runs
                 state = host_state(self.train_step.state)
+            save_best, save_last = (save_best and self.writer,
+                                    save_last and self.writer)
             if save_best:
                 self._ckpt_writer().submit(
                     os.path.join(self.savename, "checkpoint.npz"), state,
@@ -671,12 +696,13 @@ def main(argv=None):
         return _main(args, argv)
     finally:
         if opened:
-            torch.distributed.destroy_process_group()
+            destroy()
 
 
 def _main(args, argv):
     config = config_from_namespace(args)
     check_ported(config)
+    check_tensor_parallel(config, config.tp)
     if config.steps_per_call > 1:
         check_capturable(args.device)
     n_local = local_world(args.device)
@@ -690,6 +716,9 @@ def _main(args, argv):
             with open(os.path.join(tmp, "summary.json")) as f:
                 return json.load(f)
     rank_device(args.device)
+    # the mesh over this launch's processes: a --tp that does not divide
+    # them raises here, before the datasets
+    make_mesh(config.mesh_shape, config.mesh_axes)
     wv_model = None
     if "synthetic" not in config.dataset:
         from zeroshotvideoclassification_tpu_torch.text import load_word2vec

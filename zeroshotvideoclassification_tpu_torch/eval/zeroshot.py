@@ -9,9 +9,10 @@ targets: reference/main.py:224-325), for one process.
     np.random.permutation(C)[:C//2] — reproduced bit-exactly with
     np.random.RandomState(split) (identical MT19937 stream).
 The distance/top-k math runs in torch (ops/cdist.py) on the device it is
-given. Under a process group extract_embeddings gathers every process's
-rows in rank order, so every process computes the metrics of the whole
-table.
+given. Under a process group extract_embeddings gathers every data
+shard's rows in data-index order (over the data group: under --tp the
+processes of a model group share their rows, and each gathers the table
+once), so every process computes the metrics of the whole table.
 """
 
 from __future__ import annotations
@@ -102,10 +103,10 @@ def extract_embeddings(
     Returns (pred_embed [N,300], true_embed [N,300], true_label [N]) of the
     rows with weight > 0, in order.
 
-    Under a process group each process passes its lockstep shard of the
-    table; every batch's [emb, z, weight, label] is packed into ONE float32
-    [B, 2*300+2] tensor on the device and gathered in rank order
-    (parallel.multihost.gather_rows), as eval/zeroshot.py:119-137 of the
+    Under a process group each process passes its lockstep data shard of
+    the table; every batch's [emb, z, weight, label] is packed into ONE
+    float32 [B, 2*300+2] tensor on the device and gathered in data-index
+    order (parallel.multihost.gather_rows), as eval/zeroshot.py:119-137 of the
     JAX package gathers its global array, so every process returns the
     rows of the whole table. Labels ride the float32 pack exactly (class
     counts are far below 2**24). `sync_tag` (unique per call site) aligns

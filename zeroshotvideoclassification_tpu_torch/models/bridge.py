@@ -21,6 +21,13 @@ numpy arrays, so that parameters and BN statistics after some training steps
 can be compared leaf by leaf. adam_from_jax / adam_to_jax carry Adam's
 moments and count across (optax's mu / nu / count <-> exp_avg / exp_avg_sq /
 step of train/optimizer.GuardedAdam), in the same layouts as the parameters.
+shard_head(state_dict, tp, m) keeps what process m of a model group of
+--tp holds of the mlp head (fc1's output rows and bias entries of its
+range, fc2's input columns of it, fc2's bias whole: the JAX package's
+column and row shards in torch's [out, in] layout); unshard_head is its
+inverse, a concatenation of the tp shards, bit for bit. A whole JAX tree
+goes through from_jax, then shard_head; adam_from_jax shards Adam's
+moments by the model's own head (ZeroShotModel.tp) the same way.
 conv_weight_from_jax / conv_weight_to_jax carry one conv weight across, e.g.
 the temporal conv op's (ops/temporal_conv.temporal_conv3 takes the JAX
 layout [3, 1, 1, Ci, Co]; a Conv3d holds [Co, Ci, 3, 1, 1]).
@@ -35,6 +42,7 @@ import numpy as np
 import torch
 
 from zeroshotvideoclassification_tpu_torch.models.c3d import CONVS
+from zeroshotvideoclassification_tpu_torch.models.heads import MLP
 
 # JAX stem sub-tree -> torchvision stem index
 _STEM = {"conv1": "0", "bn1": "1", "conv2": "3", "bn2": "4"}
@@ -48,6 +56,9 @@ for _c in ("conv1", "conv2"):
                    f"{_c}/bn_m": f"{_c}.0.1", f"{_c}/conv_t": f"{_c}.0.3"})
 _HEAD = {"fc1": "output2emb_proj.layers.0", "fc2": "output2emb_proj.layers.1",
          "regressor": "regressor"}
+# the mlp head's tensors that --tp shards (models/heads.MLP.TP_AXES) ->
+# the axis split over the model axis
+TP_AXES = {f"output2emb_proj.{k}": axis for k, axis in MLP.TP_AXES.items()}
 # C3D's layers, the same names in both packages
 _C3D = tuple(name for name, _, _ in CONVS) + ("fc6",)
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
@@ -201,11 +212,44 @@ def to_jax(state_dict):
     return trees["params"], trees["model_state"]
 
 
+def shard_head(state_dict, tp: int, m: int) -> "OrderedDict":
+    """The entries of `state_dict` (the port's keys, whole tensors) as
+    process `m` of a model group of `tp` holds them: the mlp head's
+    TP_AXES tensors narrowed to shard m (contiguous copies), everything
+    else as it is. tp 1: the same entries."""
+    out = OrderedDict(state_dict)
+    if tp == 1:
+        return out
+    for key, axis in TP_AXES.items():
+        if key in out:
+            t = out[key]
+            n, rem = divmod(t.shape[axis], tp)
+            if rem:
+                raise ValueError(f"{key}: {t.shape[axis]} entries on axis "
+                                 f"{axis} do not split over {tp} shards")
+            out[key] = t.narrow(axis, m * n, n).contiguous()
+    return out
+
+
+def unshard_head(shards) -> "OrderedDict":
+    """The inverse of shard_head: the tp shards' state dicts (in model-index
+    order) -> one with the head's TP_AXES tensors whole (concatenated) and
+    every other entry from the first shard."""
+    out = OrderedDict(shards[0])
+    if len(shards) > 1:
+        for key, axis in TP_AXES.items():
+            if key in out:
+                out[key] = torch.cat([s[key] for s in shards], dim=axis)
+    return out
+
+
 def adam_from_jax(model, optimizer, mu, nu, count: int) -> None:
-    """Load optax Adam moments (trees shaped like the JAX params) and its
-    count into `optimizer`, whose parameters are `model`'s."""
-    m_sd = from_flat(flatten(mu), {})
-    v_sd = from_flat(flatten(nu), {})
+    """Load optax Adam moments (trees shaped like the JAX params, whole)
+    and its count into `optimizer`, whose parameters are `model`'s; a
+    sharded head takes its shard of them (shard_head)."""
+    tp = getattr(model, "tp", (1, 0))
+    m_sd = shard_head(from_flat(flatten(mu), {}), *tp)
+    v_sd = shard_head(from_flat(flatten(nu), {}), *tp)
     with torch.no_grad():
         optimizer.count.fill_(int(count))
         for key, p in model.named_parameters():
@@ -215,10 +259,13 @@ def adam_from_jax(model, optimizer, mu, nu, count: int) -> None:
             st["exp_avg_sq"] = v_sd[key].to(p.device)
 
 
-def adam_to_jax(model, optimizer):
+def adam_to_jax(model, optimizer, whole=None):
     """-> (mu, nu, count): `optimizer`'s moments as trees in the JAX
     package's layouts (zeros for a parameter that has not stepped yet, as
-    optax.adam's init), and its step count."""
+    optax.adam's init), and its step count. `whole` ({key: moment} ->
+    the same with the head's shards made whole, as the checkpoint's
+    model-group gather does) is applied before the layouts change; without
+    it a sharded head gives its shards."""
     named = dict(model.named_parameters())
 
     def moment(p, slot):  # zeros where Adam never stepped (--fixconvs)
@@ -226,6 +273,7 @@ def adam_to_jax(model, optimizer):
         return torch.zeros_like(p) if t is None else t
 
     def moments(slot):
-        return to_jax({k: moment(p, slot) for k, p in named.items()})[0]
+        sd = {k: moment(p, slot) for k, p in named.items()}
+        return to_jax(sd if whole is None else whole(sd))[0]
 
     return moments("exp_avg"), moments("exp_avg_sq"), int(optimizer.count)

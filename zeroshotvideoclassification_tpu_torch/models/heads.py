@@ -18,6 +18,15 @@ package's stop_gradient): the backbone runs without autograd, its BN
 running statistics still move in train mode. Dropout draws its mask from
 the generator forward() is given (none: no dropout).
 
+--tp N (models.heads.MLP.shard, as the JAX package's _tp_spec_for,
+parallel/mesh.py:56-70): each process of a model group holds one shard of
+the mlp head: fc1's output rows [m f/N, (m+1) f/N) and their biases (the
+JAX column shard of fc1's [in, out] kernel), fc2's input columns of that
+range (the row shard) and fc2's whole bias. The forward is
+reduce_from_model(relu(fc1_m(copy_to_model(x))) @ fc2_m^T) + fc2's bias:
+one model-group all-reduce after fc2, the bias added once after it. The
+linear and C3D heads, and every backbone, are replicated.
+
 Key names follow the reference (network.py:50-180, :481, :517): a
 VideoResNet under `model.`, the mlp head under
 `output2emb_proj.layers.{0,1}`, the linear and C3D heads as `regressor`,
@@ -37,24 +46,78 @@ from torch import nn
 from zeroshotvideoclassification_tpu_torch.models import layers as L
 from zeroshotvideoclassification_tpu_torch.models.c3d import C3D
 from zeroshotvideoclassification_tpu_torch.models.resnet3d import (
+    VideoResNet,
     mc3_18,
     r2plus1d_18,
     r3d_18,
+)
+from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    copy_to_model,
+    reduce_from_model,
 )
 
 EMBED_DIM = 300
 HEADS = ("mlp", "linear", "c3d")
 
 
+def check_tp_width(width: int, tp: int) -> None:
+    """ValueError where a 'model' axis of `tp` does not divide `width`, the
+    outputs of fc1 that --tp shards (the JAX package's device_put of a
+    sharding that does not divide a dimension raises ValueError too)."""
+    if width % tp:
+        raise ValueError(
+            f"--tp {tp}: the mlp head's fc1 has {width} outputs, which a "
+            f"'model' axis of {tp} does not divide (each process holds "
+            f"{width} / {tp} of them)")
+
+
 class MLP(nn.Module):
+    """fc1 -> ReLU -> fc2, in float32; one shard of it under --tp
+    (shard)."""
+
+    # the tensors --tp shards -> the axis of torch's [out, in] layout split
+    # over the model axis: fc1's rows (the JAX column shard of its [in,
+    # out] kernel) and its bias, fc2's columns (the JAX row shard); fc2's
+    # bias is whole on every process
+    TP_AXES = {"layers.0.weight": 0, "layers.0.bias": 0,
+               "layers.1.weight": 1}
+    tp, index = 1, 0
+
     def __init__(self, dims=(512, 512, EMBED_DIM)):
         super().__init__()
         self.layers = nn.ModuleList(
             nn.Linear(a, b) for a, b in zip(dims[:-1], dims[1:]))
 
     def forward(self, x):
-        x = torch.relu(L.linear(x, self.layers[0]))
-        return L.linear(x, self.layers[1])
+        if self.tp == 1:
+            x = torch.relu(L.linear(x, self.layers[0]))
+            return L.linear(x, self.layers[1])
+        fc1, fc2 = self.layers
+        h = torch.relu(L.linear(copy_to_model(x), fc1))
+        return reduce_from_model(torch.matmul(h, fc2.weight.t())) + fc2.bias
+
+    @torch.no_grad()
+    def shard(self, tp: int, index: int) -> "MLP":
+        """Keep shard `index` of `tp` of the whole head, in place: entries
+        [index n, (index + 1) n) along TP_AXES, n = fc1's outputs / tp,
+        each a parameter of its own, marked `model_parallel` (for
+        train/step.sum_gradients). Once, on the whole head (the shards of
+        bridge.shard_head)."""
+        fc1, fc2 = self.layers
+        check_tp_width(fc1.out_features, tp)
+        if self.tp != 1:
+            raise ValueError("the head is sharded already")
+        n = fc1.out_features // tp
+        for name, axis in self.TP_AXES.items():
+            owner, leaf = name.rsplit(".", 1)
+            module = self.get_submodule(owner)
+            part = nn.Parameter(getattr(module, leaf).narrow(
+                axis, index * n, n).clone())
+            part.model_parallel = True
+            setattr(module, leaf, part)
+        fc1.out_features = fc2.in_features = n
+        self.tp, self.index = int(tp), int(index)
+        return self
 
 
 class ZeroShotModel(nn.Module):
@@ -90,6 +153,21 @@ class ZeroShotModel(nn.Module):
     @property
     def backbone(self) -> nn.Module:
         return self.__dict__.get("_c3d") or self.model
+
+    @property
+    def tp(self):
+        """(tp, this process's model index) of the head's shards; (1, 0)
+        where it is whole or replicated."""
+        head = getattr(self, "output2emb_proj", None)
+        return (head.tp, head.index) if head is not None else (1, 0)
+
+    def shard_head(self, tp: int, index: int) -> "ZeroShotModel":
+        """--tp: keep shard `index` of `tp` of the mlp head (MLP.shard);
+        the linear and C3D heads are replicated and stay whole. Before the
+        optimizer is built: the shards are new parameters."""
+        if self.head == "mlp" and tp > 1:
+            self.output2emb_proj.shard(tp, index)
+        return self
 
     def set_compute_dtype(self, dtype: torch.dtype,
                           masters: bool = False) -> "ZeroShotModel":
@@ -135,6 +213,25 @@ class ZeroShotModel(nn.Module):
         return L.l2_normalize(emb)
 
 
+def routed_head(config) -> str:
+    """The head get_network builds for `config` (without building it)."""
+    name = config.network
+    if "c3d" in name:
+        return "c3d"
+    if "resnet18" in name and not any(k in name for k in ("2plus1d", "mc3",
+                                                          "r3d")):
+        return "linear"
+    return getattr(config, "head", "mlp")
+
+
+def check_tensor_parallel(config, tp: int) -> None:
+    """ValueError where --tp `tp` cannot shard the head get_network builds
+    for `config`: only the mlp head shards (over its VideoResNet's
+    feature width); the linear and C3D heads are replicated at any tp."""
+    if tp > 1 and routed_head(config) == "mlp":
+        check_tp_width(VideoResNet.feature_dim, tp)
+
+
 def get_network(config) -> ZeroShotModel:
     """Backbone and head routing of the JAX get_network: substring match on
     Config.network ('c3d', '2plus1d', 'mc3', 'r3d', then 'resnet18' -> an
@@ -142,14 +239,14 @@ def get_network(config) -> ZeroShotModel:
     the linear head dropout 0.05. --remat ('none' / False mean off) applies
     to the VideoResNets; on C3D it changes nothing and says so on stderr."""
     name = config.network
-    head = getattr(config, "head", "mlp")
+    head = routed_head(config)
     dropout = 0.0
     remat = getattr(config, "remat", False)
     if str(remat) in ("False", "none", ""):
         remat = False  # before branching: 'none' is truthy
     mode = ("convs" if remat == "convs" else "full") if remat else False
     if "c3d" in name:
-        backbone, head, dropout = C3D(), "c3d", 0.10
+        backbone, dropout = C3D(), 0.10
         if remat:
             print(f"WARNING: --remat {remat} has no effect on {name!r} "
                   f"(only the VideoResNet backbones rematerialize)",
@@ -161,7 +258,7 @@ def get_network(config) -> ZeroShotModel:
     elif "r3d" in name:
         backbone = r3d_18(mode)
     elif "resnet18" in name:
-        backbone, head = r3d_18(mode), "linear"
+        backbone = r3d_18(mode)
     else:
         raise ValueError(f"Network {name!r} not available!")
     if head == "linear":

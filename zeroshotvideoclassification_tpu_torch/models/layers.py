@@ -16,7 +16,7 @@ contiguous [N, T, H, W, C] view.
     every epilogue, like layers.py:248-287. In train mode the statistics
     are bn_statistics (layers.py:199-225: one pass, shifted by the running
     mean, in float32, through autograd, over the global batch of all
-    processes) and the running statistics move; in
+    data shards) and the running statistics move; in
     eval mode they are the running statistics. Either way the apply is K2
     (ops/bn_cuda.bn_apply_relu) with mean and var as differentiable inputs.
     Inside `recomputing()` (a rematerialised block's second forward,
@@ -43,8 +43,8 @@ from torch import nn
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import bn_apply_relu
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     all_reduce_sum,
+    grid,
     group_active,
-    process_count,
 )
 
 
@@ -99,10 +99,12 @@ def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
 
     Under a process group the expectations are over the GLOBAL batch, as
     the JAX package's over its sharded batch: one float32 tensor [sum s,
-    sum s^2, count] a layer is summed over the processes
-    (parallel.multihost.all_reduce_sum, differentiable, so the backward
-    sums each process's gradient of the sums), and the statistics and the
-    unbiased factor come from the global sums and count. Without a group
+    sum s^2, count] a layer is summed over the data group, one process a
+    data shard (parallel.multihost.all_reduce_sum, differentiable, so the
+    backward sums each process's gradient of the sums; the members of a
+    model group see the same rows and are not summed twice), and the
+    statistics and the unbiased factor come from the global sums and
+    count. Without a group
     they are the plain means of this batch: packing, slicing and dividing
     by a count tensor add autograd nodes and launches that a host-paced
     step feels."""
@@ -111,14 +113,16 @@ def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
     m0 = running_mean.detach()
     s = x - m0  # float32 by promotion: no float copy of x on its own
     if group_active():
-        total = count * process_count()
+        g = grid()
+        total = count * g.n_data
         if float(np.float32(total)) != total:  # exact below 2^24, often above
-            raise ValueError(f"BN over {count:.0f} x {process_count()} "
+            raise ValueError(f"BN over {count:.0f} x {g.n_data} "
                              f"positions: the global count is not exact in "
                              f"float32")
         c = x.shape[-1]
         sums = all_reduce_sum(torch.cat([
-            s.sum(dims), torch.square(s).sum(dims), s.new_full((1,), count)]))
+            s.sum(dims), torch.square(s).sum(dims), s.new_full((1,), count)]),
+            g.data_group)
         s_sum, sq_sum, n = sums.split((c, c, 1))
         n = n.detach()
         s_mean, s_sq = s_sum / n, sq_sum / n

@@ -1,17 +1,19 @@
-"""The data-parallel mesh of the port: how many processes (one device each)
-each mesh axis spans.
+"""The mesh of the port: how many processes (one device each) each mesh
+axis spans, and where each process sits on it.
 
 Counterpart of zeroshotvideoclassification_tpu/parallel/mesh.py:make_mesh,
 with its validation and messages. The JAX package lays the devices out in a
 jax.sharding.Mesh and XLA shards by it; here a 'data' axis of N is N
-processes of the group, each holding a full replica of the model and its
-own shard of the batch. A 'model' axis (--tp: the head's tensor
-parallelism) is not ported yet.
+processes, each with its own shard of the batch, and a 'model' axis of
+--tp N is N processes that see the same rows and each hold one shard of
+the mlp head (models/heads.MLP). The processes take the places of the JAX
+package's devices in np.asarray(devices).reshape(shape) (mesh.py:46):
+rank r sits at data r // tp and model r % tp (grid_layout).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Optional, Sequence
+from typing import Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -24,7 +26,7 @@ def make_mesh(shape: Sequence[int] = (-1,),
 
     Every device must be used: a fixed axis that does not divide the device
     count, or totals that do not match, raise ValueError as in the JAX
-    package. A 'model' axis larger than 1 raises NotImplementedError."""
+    package."""
     if world_size is None:
         from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
             process_count,
@@ -49,9 +51,16 @@ def make_mesh(shape: Sequence[int] = (-1,),
         raise ValueError(
             f"mesh shape {tuple(shape)} needs {total} devices but {n} are "
             f"available; pass devices= explicitly to use a subset")
-    mesh = dict(zip(axes, (int(s) for s in shape)))
-    if mesh.get("model", 1) > 1:
-        raise NotImplementedError(
-            f"a 'model' mesh axis of {mesh['model']} (--tp, the head's "
-            f"tensor parallelism) is not ported yet (ROADMAP P7b)")
-    return mesh
+    return dict(zip(axes, (int(s) for s in shape)))
+
+
+def grid_layout(world_size: int, tp: int) -> Tuple[List[List[int]],
+                                                   List[List[int]]]:
+    """(data groups, model groups) of a (world_size / tp) x tp grid, as
+    lists of ranks: data group m is the ranks at model index m ({m, m + tp,
+    ...}, in data-index order), model group d the ranks at data index d
+    ({d tp, ..., d tp + tp - 1}). make_mesh validates the sizes first."""
+    n_data = make_mesh((-1, tp), ("data", "model"), world_size)["data"]
+    data = [[d * tp + m for d in range(n_data)] for m in range(tp)]
+    model = [[d * tp + m for m in range(tp)] for d in range(n_data)]
+    return data, model

@@ -1,5 +1,6 @@
-"""Several processes, one device each: the process group, lockstep table
-shards and the collectives of data-parallel training.
+"""Several processes, one device each: the process group, the grid of
+data and model groups, lockstep table shards and the collectives of
+data- and tensor-parallel training.
 
 Counterpart of zeroshotvideoclassification_tpu/parallel/multihost.py on
 torch.distributed. The JAX package runs one SPMD program over a mesh and
@@ -12,15 +13,27 @@ batch reduce across processes themselves:
     differentiable);
   * the loss divides by the global weight sum, and the gradients are summed
     across processes after the backward (train/step.py);
-  * the evaluation gathers every process's embeddings in rank order
+  * the evaluation gathers every process's embeddings in data-index order
     (eval/zeroshot.extract_embeddings, through gather_rows);
   * --resume auto and the run directory are decided on process 0 and
     broadcast (agree_from_process_zero).
 
+The grid (--tp N, init_grid): P processes form a (P / N) x N mesh over
+('data', 'model'). Each process belongs to one data group (the processes
+at its model index, one a data shard) and one model group (the N
+processes at its data index, which see the same rows and each hold one
+shard of the mlp head). The reductions above run over the data group. The
+head's two Megatron-style operators run over the model group:
+copy_to_model (identity forward, all-reduce backward) before fc1 and
+reduce_from_model (all-reduce forward, identity backward) after fc2;
+the guarded Adam agrees its finite flag over it (agree_finite), and a
+checkpoint gathers the head's shards over it (gather_model). Without a
+grid (--tp 1) the data group is the whole group and nothing else changes.
+
 Under NCCL these collectives can be captured into a CUDA graph of the
 train step (train/step.make_scan_train_step): the clones of
-_AllReduceSum then allocate in the graph's pool, and the group must have
-run one step eagerly first (its communicator comes up on the first call).
+_AllReduceSum then allocate in the graph's pool, and the groups must have
+run one step eagerly first (a communicator comes up on its first call).
 gloo cannot be captured (check_capturable).
 
 Without a process group every function here is the identity or a no-op,
@@ -134,29 +147,97 @@ def maybe_initialize(backend: Optional[str] = None,
     return True
 
 
-def process_shard(n: int) -> Tuple[int, int]:
-    """(start, stop) of this process's contiguous slice of an n-sample list."""
-    pi, pc = process_index(), process_count()
+@dataclasses.dataclass(frozen=True)
+class Grid:
+    """This process's place on the (n_data x tp) grid and its two groups
+    (torch ProcessGroups; None: the whole group, or no group at all)."""
+
+    n_data: int
+    tp: int
+    data_index: int
+    model_index: int
+    data_group: object = None
+    model_group: object = None
+
+
+_GRID: Optional[Grid] = None
+
+
+def grid() -> Grid:
+    """The grid init_grid built, else the data-parallel one: every process
+    its own data shard, the whole group the data group, no model axis."""
+    if _GRID is not None and group_active():
+        return _GRID
+    return Grid(process_count(), 1, process_index(), 0)
+
+
+def init_grid(tp: int) -> Grid:
+    """Build the (P / tp) x tp grid over the P processes of the group:
+    every data group and every model group through
+    torch.distributed.new_group, on every process and in one order (as
+    new_group asks), before the first collective on either. tp 1 builds no
+    group and keeps the data-parallel grid. A tp that does not divide P
+    raises ValueError (make_mesh's message). -> this process's Grid."""
+    global _GRID
+    from zeroshotvideoclassification_tpu_torch.parallel.mesh import (
+        grid_layout,
+    )
+
+    world, rank = process_count(), process_index()
+    data_groups, model_groups = grid_layout(world, tp)
+    _GRID = None
+    if tp == 1:
+        return grid()
+    mine = {}
+    for kind, layout in (("data", data_groups), ("model", model_groups)):
+        for ranks in layout:
+            g = dist.new_group(ranks)
+            if rank in ranks:
+                mine[kind] = g
+    _GRID = Grid(world // tp, tp, rank // tp, rank % tp, mine["data"],
+                 mine["model"])
+    return _GRID
+
+
+def destroy() -> None:
+    """Leave the process group and forget the grid."""
+    global _GRID
+    _GRID = None
+    dist.destroy_process_group()
+
+
+def process_shard(n: int, index: Optional[int] = None,
+                  count: Optional[int] = None) -> Tuple[int, int]:
+    """(start, stop) of data shard `index` of `count` (default: this
+    process's data index and the number of data shards) of an n-sample
+    list."""
+    g = grid()
+    pi = g.data_index if index is None else index
+    pc = g.n_data if count is None else count
     per = (n + pc - 1) // pc
     return min(pi * per, n), min((pi + 1) * per, n)
 
 
-def shard_table(table):
-    """Process-local slice of a VideoTable, LOCKSTEP-padded.
+def shard_table(table, index: Optional[int] = None,
+                count: Optional[int] = None):
+    """Data shard `index` of `count` of a VideoTable (default: this
+    process's data index and the number of data shards; the processes of
+    one model group share their rows), LOCKSTEP-padded.
 
-    Every process gets exactly ceil(n / process_count) rows so that all
+    Every shard has exactly ceil(n / count) rows so that all
     processes dispatch the same number of batches per epoch — unequal batch
     counts would deadlock the collectives. Rows past the end of the global
     table are marked label -1: the host pipeline skips their decode and
     emits them with weight 0 (the broken-sample convention), so they
-    contribute nothing to loss or metrics. Single-process: returns the table
+    contribute nothing to loss or metrics. One shard: returns the table
     unchanged."""
-    pc = process_count()
+    g = grid()
+    pi = g.data_index if index is None else index
+    pc = g.n_data if count is None else count
     if pc == 1:
         return table
     n = len(table)
     per = (n + pc - 1) // pc
-    pi = process_index()
     idx = np.arange(pi * per, (pi + 1) * per)
     valid = idx < n
     safe = np.where(valid, idx, 0)
@@ -211,54 +292,148 @@ def check_capturable(device) -> None:
             f"group runs {dist.get_backend()}")
 
 
-def all_reduce_(t: torch.Tensor) -> torch.Tensor:
-    """In-place SUM of `t` over the processes, outside autograd; the
-    identity without a group. -> t."""
+def data_group():
+    """The processes that hold the other data shards at this model index
+    (the whole group without a grid)."""
+    return grid().data_group
+
+
+def model_group():
+    """The processes that share this process's rows (None without a
+    model axis)."""
+    return grid().model_group
+
+
+def all_reduce_(t: torch.Tensor, group=None) -> torch.Tensor:
+    """In-place SUM of `t` over `group` (default: every process), outside
+    autograd; the identity without a process group. -> t."""
     if group_active():
-        dist.all_reduce(t)
+        dist.all_reduce(t, group=group)
     return t
 
 
 class _AllReduceSum(torch.autograd.Function):
     """SUM all-reduce whose backward is the SUM all-reduce of the incoming
-    gradient: each process's tensor feeds the global sum, so its gradient
-    is the sum of every process's gradient of that sum."""
+    gradient: each process's tensor feeds the group's sum, and each holds a
+    share of the loss, so its gradient is the sum of every process's
+    gradient of that sum."""
 
     @staticmethod
-    def forward(ctx, x):
+    def forward(ctx, x, group):
+        ctx.group = group
         y = x.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(y)
+        dist.all_reduce(y, group=group)
         return y
 
     @staticmethod
     def backward(ctx, g):
         g = g.clone(memory_format=torch.contiguous_format)
-        dist.all_reduce(g)
-        return g
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
 
 
-def all_reduce_sum(x: torch.Tensor) -> torch.Tensor:
-    """Differentiable SUM of `x` over the processes; `x` itself without a
-    group."""
-    return _AllReduceSum.apply(x) if group_active() else x
+def all_reduce_sum(x: torch.Tensor, group=None) -> torch.Tensor:
+    """Differentiable SUM of `x` over `group` (default: every process);
+    `x` itself without a process group."""
+    return _AllReduceSum.apply(x, group) if group_active() else x
+
+
+class _CopyToModel(torch.autograd.Function):
+    """The identity forward; the backward sums the gradient over the model
+    group: each member's fc1 shard gives its share of the input's
+    gradient."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        ctx.group = group
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        g = g.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(g, group=ctx.group)
+        return g, None
+
+
+class _ReduceFromModel(torch.autograd.Function):
+    """The model group's SUM forward; the identity backward. Every member
+    holds the same loss (the same rows), so the gradient of the sum is the
+    incoming gradient as it is: an all-reduce here would count it tp
+    times."""
+
+    @staticmethod
+    def forward(ctx, x, group):
+        y = x.clone(memory_format=torch.contiguous_format)
+        dist.all_reduce(y, group=group)
+        return y
+
+    @staticmethod
+    def backward(ctx, g):
+        return g, None
+
+
+def copy_to_model(x: torch.Tensor) -> torch.Tensor:
+    """Where the head's input enters its model-parallel part; `x` itself
+    without a model axis."""
+    g = model_group()
+    return x if g is None else _CopyToModel.apply(x, g)
+
+
+def reduce_from_model(x: torch.Tensor) -> torch.Tensor:
+    """The sum of the model group's partial products (fc2 on each shard);
+    `x` itself without a model axis."""
+    g = model_group()
+    return x if g is None else _ReduceFromModel.apply(x, g)
+
+
+def agree_finite(flag: torch.Tensor) -> torch.Tensor:
+    """A 0-dim bool that is True only where it is True on every process of
+    the model group (a MIN all-reduce): the guarded Adam's decision, which
+    the members must take alike or their states part for good. `flag`
+    itself without a model axis."""
+    g = model_group()
+    if g is None:
+        return flag
+    t = flag.to(torch.int32).reshape(1)
+    dist.all_reduce(t, op=dist.ReduceOp.MIN, group=g)
+    return t.reshape(()).to(torch.bool)
+
+
+def _gather(t: torch.Tensor, dim: int, group, index: int,
+            size: int) -> torch.Tensor:
+    """Every member's `t` (one shape and dtype on all) concatenated along
+    `dim` in group-rank order: an all-reduce of a zeroed buffer in which
+    each member fills its own slot, the one collective that NCCL and gloo
+    both run on CUDA tensors; each entry is one value plus zeros, so every
+    member gets the same bits."""
+    b = t.shape[dim]
+    shape = list(t.shape)
+    shape[dim] = size * b
+    buf = t.new_zeros(shape)
+    buf.narrow(dim, index * b, b).copy_(t)
+    dist.all_reduce(buf, group=group)
+    return buf
 
 
 def gather_rows(t: torch.Tensor) -> torch.Tensor:
-    """[b, k] on every process -> [P * b, k], the processes' rows in rank
-    order (the order of the JAX package's global array; fetch_global's
-    counterpart). Every process must give the same shape and dtype.
-
-    It is an all-reduce of a zeroed buffer in which each process fills its
-    own slot: the one collective that NCCL and gloo both run on CUDA
-    tensors, and each entry is one value plus zeros, so every process gets
-    the same bits. `t` itself without a group."""
+    """[b, k] on every process -> [n_data * b, k], the data shards' rows in
+    data-index order (the order of the JAX package's global array;
+    fetch_global's counterpart), over the data group: the members of a
+    model group each gather the whole table once. `t` itself without a
+    process group."""
     if not group_active():
         return t
-    b = t.shape[0]
-    buf = t.new_zeros((process_count() * b, *t.shape[1:]))
-    buf[process_index() * b:(process_index() + 1) * b] = t
-    dist.all_reduce(buf)
-    return buf
+    g = grid()
+    return _gather(t, 0, g.data_group, g.data_index, g.n_data)
+
+
+def gather_model(t: torch.Tensor, dim: int) -> torch.Tensor:
+    """The model group's shards of one tensor, whole (concatenated along
+    `dim` in model-index order); `t` itself without a model axis."""
+    g = grid()
+    if g.model_group is None:
+        return t
+    return _gather(t, dim, g.model_group, g.model_index, g.tp)
 
 
 def run_local_ranks(fn, args: tuple, world_size: int, init_method: str,
@@ -284,4 +459,4 @@ def _rank_entry(rank, world_size, init_method, device_type, fn, args):
     try:
         fn(*args)
     finally:
-        dist.destroy_process_group()
+        destroy()

@@ -32,6 +32,13 @@ tests/test_torch_checkpoint.py holds it to the JAX package's after steps
 with a NaN step among them. On reading, `count` is checked like every
 leaf and then dropped: the sum gives it back.
 
+Under --tp the file holds the mlp head and its moments whole, as the JAX
+package's does: host_state gathers the head's shards over the model group
+(a collective of the group's processes, which all call it; process 0
+writes), and load_checkpoint and warm_start read the whole tensors and
+copy this process's shard of them (bridge.shard_head) into the model's
+parameters and the optimizer's moments, in place.
+
 Writes are atomic (a temporary file, then os.replace). Loads are STRICT
 for the sections named: every tensor the model (and optimizer) holds must
 be present with its shape, or ValueError, and nothing is changed; tensors
@@ -52,6 +59,9 @@ import torch
 from torch import nn
 
 from zeroshotvideoclassification_tpu_torch.models import bridge
+from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    gather_model,
+)
 
 SECTIONS = ("params", "model_state", "opt_state")
 _ADAM = "inner_state/inner_state/0"
@@ -93,9 +103,26 @@ def _copies(tree) -> Dict[str, np.ndarray]:
             for k, v in bridge.flatten(tree).items()}
 
 
+def _whole(model: nn.Module, state_dict) -> Dict[str, torch.Tensor]:
+    """`state_dict` (of `model`'s keys) with the mlp head's shards gathered
+    whole over the model group (parallel.multihost.gather_model: every
+    member calls it); as it is where the head is whole."""
+    if getattr(model, "tp", (1, 0))[0] == 1:
+        return state_dict
+    return {k: (gather_model(v, bridge.TP_AXES[k]) if k in bridge.TP_AXES
+                else v) for k, v in state_dict.items()}
+
+
+def _shard(model: nn.Module, key: str, t: torch.Tensor) -> torch.Tensor:
+    """This process's shard of the whole tensor `t` of `key` (t itself
+    where the model's head is whole)."""
+    return bridge.shard_head({key: t}, *getattr(model, "tp", (1, 0)))[key]
+
+
 def _opt_flat(model: nn.Module, optimizer) -> Dict[str, np.ndarray]:
     """The guarded Adam's state under the JAX package's opt_state keys."""
-    mu, nu, adam_count = bridge.adam_to_jax(model, optimizer)
+    mu, nu, adam_count = bridge.adam_to_jax(
+        model, optimizer, whole=lambda sd: _whole(model, sd))
     skipped = int(optimizer.total_notfinite)
     flat = {
         "count": adam_count + skipped,  # every update: finite + skipped
@@ -115,8 +142,11 @@ def _opt_flat(model: nn.Module, optimizer) -> Dict[str, np.ndarray]:
 def host_state(state) -> Dict[str, np.ndarray]:
     """A TrainState (train/step.py) as the npz members a checkpoint holds,
     host numpy copies (a device state waits for the device here): what
-    save_checkpoint writes and AsyncCheckpointer.submit takes."""
-    params, model_state = bridge.to_jax(state.model.state_dict())
+    save_checkpoint writes and AsyncCheckpointer.submit takes. Under --tp
+    every process of the model group calls it (the head is gathered
+    whole) and each gets the same members."""
+    params, model_state = bridge.to_jax(_whole(state.model,
+                                                state.model.state_dict()))
     payload = {}
     for section, flat in (("params", _copies(params)),
                           ("model_state", _copies(model_state)),
@@ -218,7 +248,7 @@ def load_checkpoint(path: str, model: nn.Module, optimizer=None,
         for jpath, key in leaves.items():
             a = flat[sec].get(jpath)
             if a is not None:
-                t = bridge.from_flat({jpath: a}, {})[key]
+                t = _shard(model, key, bridge.from_flat({jpath: a}, {})[key])
                 if t.shape == want[key].shape:
                     got[key] = t
         if len(got) != len(leaves) and sec in strict_sections:
@@ -235,7 +265,7 @@ def load_checkpoint(path: str, model: nn.Module, optimizer=None,
                 if a.shape == ():
                     opt_new[k] = a
             else:
-                t = bridge.from_flat({jpath: a}, {})[key]
+                t = _shard(model, key, bridge.from_flat({jpath: a}, {})[key])
                 if t.shape == params[key].shape:
                     opt_new[k] = t
         total = len(_opt_leaves(model))
@@ -336,6 +366,7 @@ def warm_start(path: str, model: nn.Module) -> int:
                     sd.update(bridge.from_flat({jpath: a}, {}))
                 except ValueError:  # a leaf the port's models do not have
                     continue
+    sd = bridge.shard_head(sd, *getattr(model, "tp", (1, 0)))
     want = model.state_dict()
     take = {k: v for k, v in sd.items()
             if k in want and not k.endswith("num_batches_tracked")

@@ -18,6 +18,13 @@ counts on the host and cannot be switched off from the device; GuardedAdam
 keeps Adam's hyper-parameters, param_groups and state keys and replaces only
 step().)
 
+Under --tp the processes of a model group each hold a shard of the head's
+gradients, so each sees only its shards' entries: the flag is agreed over
+the model group (parallel.multihost.agree_finite, a MIN all-reduce), so
+that a non-finite entry in one shard skips the step on every member (did
+they decide apart, their states would part for good). last_finite, which
+--debug_nans reads, is the agreed flag.
+
 The update can be captured into a CUDA graph (train/step.py's
 make_scan_train_step): the learning rate enters it as one float32 device
 tensor a parameter group, which `set_lr` (and every step outside a capture)
@@ -32,6 +39,10 @@ from __future__ import annotations
 from typing import Callable
 
 import torch
+
+from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    agree_finite,
+)
 
 
 def multistep_lr(base_lr: float, n_epochs: int) -> Callable[[int], float]:
@@ -102,7 +113,7 @@ class GuardedAdam(torch.optim.Adam):
         # cannot overflow on a large finite gradient as a sum of squares can
         norms = torch._foreach_norm([g for *_, gs in groups for g in gs],
                                     float("inf"))
-        finite = torch.isfinite(torch.stack(norms)).all()
+        finite = agree_finite(torch.isfinite(torch.stack(norms)).all())
         keep = finite.to(torch.float32)
         skip = (~finite).to(torch.int32)
         self.notfinite_count.add_(1).mul_(skip)

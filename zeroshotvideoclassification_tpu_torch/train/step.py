@@ -22,7 +22,12 @@ share of the global loss, and the gradients are SUMMED over the processes
 (not averaged, as DDP averages them: with shares of one loss the sum is the
 gradient of the global loss, also where the shards' weight sums differ).
 Every process then holds the same gradients, and the guarded Adam takes the
-same decision and the same update everywhere.
+same decision and the same update everywhere. Under --tp these sums run
+over the data group (one process a data shard): the processes of a model
+group see the same rows and hold the same loss, their backbone gradients
+are made whole by the head's copy_to_model (and averaged over the model
+group, sum_gradients), and each keeps its own shard of the head's
+gradients; the guarded Adam agrees its finite flag over the model group.
 """
 
 from __future__ import annotations
@@ -38,6 +43,8 @@ from zeroshotvideoclassification_tpu_torch.ops.cdist import nearest_class
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     all_reduce_,
     check_capturable,
+    data_group,
+    grid,
     group_active,
 )
 
@@ -57,26 +64,52 @@ def masked_mse(emb: torch.Tensor, z: torch.Tensor,
     """MSELoss(mean) over valid samples only (reference/main.py:130,179 +
     mask); an all-zero weight gives loss 0 and zero gradients. The
     denominator is the weight sum of the global batch (summed over the
-    processes of a group), so under a group this is this process's share
-    of the global loss."""
+    data group), so under a group this is this process's share of the
+    global loss."""
     per = torch.mean(torch.square(emb - z.float()), dim=-1)
-    denom = torch.clamp_min(all_reduce_(torch.sum(weight.detach())), 1.0)
+    denom = torch.clamp_min(all_reduce_(torch.sum(weight.detach()),
+                                        data_group()), 1.0)
     return torch.sum(per * weight) / denom
 
 
 def sum_gradients(params) -> None:
-    """Sum the gradients of `params` (those that have one) over the
-    processes, in place, as one all-reduce of a flat buffer; nothing
-    without a group. Every process must have gradients for the same
-    parameters."""
-    grads = [p.grad for p in params if p.grad is not None]
-    if not grads or not group_active():
+    """Sum the gradients of `params` (those that have one) over the data
+    group, in place, as one all-reduce of a flat buffer; nothing without a
+    group. Every process must have gradients for the same parameters (of
+    the same shapes across its data group).
+
+    Under --tp the processes of a model group hold replicas of every
+    parameter but the head's shards (marked `model_parallel`), and each
+    computes their gradients on its own: on a GPU each process's cuDNN
+    picks its algorithms by timing and may sum in another order, so the
+    replicas' gradients can differ in their last bits, and the replicas
+    would drift apart. Their gradients are therefore summed over every
+    process and divided by tp (the model group's mean, exact where the
+    members agree; tp divides 512, a power of two, for the mlp head), so
+    that every replica takes the same update; the shards' gradients are
+    summed over the data group."""
+    with_grad = [p for p in params if p.grad is not None]
+    if not with_grad or not group_active():
         return
-    flat = torch._utils._flatten_dense_tensors(grads)
-    all_reduce_(flat)
-    for g, total in zip(grads,
-                        torch._utils._unflatten_dense_tensors(flat, grads)):
-        g.copy_(total)
+    g = grid()
+    shards = [p.grad for p in with_grad if getattr(p, "model_parallel",
+                                                   False)]
+    replicas = [p.grad for p in with_grad if not getattr(
+        p, "model_parallel", False)]
+    # (gradients, their group, the divisor): every process for the
+    # replicas of a model group, else the data group
+    parts = ((replicas, None, g.tp) if g.tp > 1 else
+             (replicas, g.data_group, 1), (shards, g.data_group, 1))
+    for grads, group, tp in parts:
+        if not grads:
+            continue
+        flat = torch._utils._flatten_dense_tensors(grads)
+        if tp > 1:
+            flat.mul_(1.0 / tp)
+        all_reduce_(flat, group)
+        for t, total in zip(grads, torch._utils._unflatten_dense_tensors(
+                flat, grads)):
+            t.copy_(total)
 
 
 def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
@@ -114,7 +147,8 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             correct = (pred == labels).float() * weight
             # the global loss and accuracy: one all-reduce of the shares
             totals = all_reduce_(torch.stack([
-                loss.detach(), torch.sum(correct), torch.sum(weight)]))
+                loss.detach(), torch.sum(correct), torch.sum(weight)]),
+                data_group())
             acc = totals[1] / torch.clamp_min(totals[2], 1.0) * 100.0
         return {"loss": totals[0], "train_accuracy": acc,
                 "finite": optimizer.last_finite.clone()}
@@ -153,12 +187,15 @@ def make_scan_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     On a GPU the steps run as CUDA graphs. The first call of K batches runs
     them eagerly (cuDNN's autotuning, the kernels' plans and library, the
     optimizer's moments and a process group's communicator all come up on a
-    first call), then captures two graphs in one memory pool: K steps,
-    reading slots 0 .. K-1, and one step, reading slot 0. Every later call
+    first call; it allocates from the graphs' memory pool, on their
+    stream, so that the captures find there every block a step needs),
+    then captures two graphs in that pool: K steps, reading slots 0 ..
+    K-1, and one step, reading slot 0. Every later call
     of K batches is one replay of the first; a call of n < K (an epoch's
     tail, as the JAX package drains a partial group through its single
     step) replays the second n times. A failed capture or replay raises:
-    nothing falls back to eager steps. A capture holds fixed:
+    nothing falls back to eager steps; a capture that runs out of device
+    memory raises torch.OutOfMemoryError. A capture holds fixed:
 
       * the input slots, the class-embedding slot (copied into at every
         call) and the metrics, allocated outside the pool; the metrics are
@@ -189,6 +226,10 @@ def make_scan_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     capture = device.type == "cuda"
     if capture:
         check_capturable(device)
+    # the graphs' memory pool and the stream they are captured on (the
+    # first group runs there too: first_group)
+    pool = torch.cuda.MemPool() if capture else None
+    stream = torch.cuda.Stream(device) if capture else None
     slots: Dict[str, torch.Tensor] = {}
     graphs: Dict[int, tuple] = {}
     captured = {"seconds": None}
@@ -226,9 +267,36 @@ def make_scan_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
             optimizer.notfinite_count, optimizer.total_notfinite,
             optimizer.last_finite)]
 
+    def first_group(n, ce, rng):
+        """The first group's n steps, eagerly, on the captures' stream,
+        every allocation made there (by the backward's thread too) taken
+        from the graphs' pool: the pool then holds the blocks a step asks
+        for (cuDNN's plans' workspaces among them), and the captures that
+        follow take them from it, as the eager steps took them. A cached
+        cuDNN plan whose workspace does not fit makes cuDNN search again,
+        which an eager step may do; inside a capture that search
+        invalidates the capture (PERF.md, F4; tools/f4_probe.py). The
+        default pool's cached blocks are released first (empty_cache): while
+        the pool takes allocations, the allocator frees none of them to
+        make room. -> the steps' metrics."""
+        torch.cuda.synchronize(device)
+        torch.cuda.empty_cache()
+        current = torch.cuda.current_stream(device)
+        stream.wait_stream(current)
+        with torch.cuda.stream(stream):
+            torch._C._cuda_beginAllocateCurrentStreamToPool(device.index,
+                                                           pool.id)
+            try:
+                ms = [single(*inputs(k), ce, rng) for k in range(n)]
+            finally:
+                torch._C._cuda_endAllocateToPool(device.index, pool.id)
+                torch._C._cuda_releasePool(device.index, pool.id)
+        current.wait_stream(stream)
+        return ms
+
     def capture_graphs(ce, rng):
+        ooms = torch.cuda.memory_stats(device).get("num_ooms", 0)
         t0 = time.perf_counter()
-        pool = None
         try:
             for n in (steps, 1):
                 g = torch.cuda.CUDAGraph(keep_graph=True)
@@ -236,17 +304,26 @@ def make_scan_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
                     g.register_generator_state(rng)
                 outs = {k: torch.empty(n, dtype=dt, device=device)
                         for k, dt in _METRICS}
-                with torch.cuda.graph(g, pool=pool):
+                with torch.cuda.graph(g, pool=pool.id, stream=stream):
                     for k in range(n):
                         m = single.body(*inputs(k), ce, rng)
                         for key, out in outs.items():
                             out[k].copy_(m[key])
                     del m
                 g.instantiate()
-                pool = g.pool()
                 graphs[n] = (g, outs)
-        except BaseException:
+        except BaseException as e:
             graphs.clear()  # no half-captured pair is ever replayed
+            if (not isinstance(e, torch.OutOfMemoryError)
+                    and torch.cuda.memory_stats(device).get("num_ooms", 0)
+                    > ooms):
+                # an allocation inside the capture failed and a library
+                # caught it (cuDNN then searches inside the capture): the
+                # card lacks the memory, and that is the error
+                raise torch.OutOfMemoryError(
+                    f"the capture of the train step's CUDA graphs ran out "
+                    f"of device memory ({type(e).__name__} after an "
+                    f"allocation failed inside it: {e})") from e
             raise
         torch.cuda.synchronize(device)
         captured.update(rng=rng, tensors=tensors(),
@@ -265,9 +342,11 @@ def make_scan_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         ce = slot("class_embed", class_embed)
         ce.copy_(class_embed)
         if not graphs:
-            ms = [single(*inputs(k), ce, rng) for k in range(n)]
-            if capture and n == steps:
+            if capture and n == steps:  # the group before the capture
+                ms = first_group(n, ce, rng)
                 capture_graphs(ce, rng)
+            else:
+                ms = [single(*inputs(k), ce, rng) for k in range(n)]
             return {key: torch.stack([m[key] for m in ms]) for key, _ in
                     _METRICS}
         if rng is not captured["rng"]:
