@@ -5,8 +5,9 @@ evaluation, the temporal conv op, the other models and options of the
 trainer: C3D (trained and served), resnet18 (R3D-18 + the linear head),
 --remat full / convs and --fixconvs, data-parallel training across
 processes (one GPU, or two where the host shows two), K train steps a
-dispatch as CUDA graphs (--steps_per_call), and the head's tensor
-parallelism (--tp).
+dispatch as CUDA graphs (--steps_per_call), the head's tensor
+parallelism (--tp), the serving engine over replicas, the multi-device
+dry run, --save_samples and the checkpoint-porting tool.
 
     python3 chip_smoke.py [--json PATH]
 
@@ -178,7 +179,31 @@ result line) if it fails:
      (on one GPU a correctness figure, not a scaling one); cli.main at
      --tp 2 (one epoch of 2 steps, the evaluation, a checkpoint with the
      head whole) and a one-process --evaluate of that checkpoint, which
-     gives its accuracy.
+     gives its accuracy;
+ 21. the serving engine over replicas: over [cuda:0, cuda:0] and, where
+     the host shows two or more GPUs, over every GPU (--device cuda),
+     against phase 5's one-replica engine on the same weights: float32
+     rows within 1e-4, bf16 cosine >= 0.999 per row and the same top
+     classes; the ladder rounded up to tile the replicas and data_shards;
+     one K1 and 37 K2 forward a replica and dispatch; one POST /classify
+     and GET /stats through serve.serve_forever (the main path's
+     launches); a reload that swaps every replica; forward clips/s at
+     buckets 8-128 beside one replica's; before the engine is closed, K1
+     and K2 forward against their plain versions at a replica's shapes on
+     the last replica's device (on one card two replicas enqueue on one
+     device: a correctness figure, not a scaling one);
+ 22. the multi-device dry run (dryrun.dryrun_multichip): NCCL over every
+     GPU where the host shows two or more, else 2 processes under gloo on
+     cuda:0; its loss within rtol 1e-4 of one process's on the same global
+     batch; 74 K2 forward and 37 K2 backward launches in process 0; before
+     it K2 forward and backward against their plain versions at a
+     process's float32 shapes;
+ 23. one epoch of cli.main --save_samples (2 steps and the evaluation: it
+     passes whether the GIF is written or the warning printed, and says
+     which); tools/port_checkpoint of a .pth of a seeded port model (its
+     state dict, the reference's torchvision key names), loaded by the
+     engine as --weights and by reload, float32 embeddings within 1e-4 of
+     the seeded model's.
 
 The line before the last is {"kernels": [...]}, one row for each kernel on
 each main path that launches it ("path": "serve", "train", "train_sun",
@@ -186,8 +211,9 @@ each main path that launches it ("path": "serve", "train", "train_sun",
 "train_remat_convs", "train_fixconvs", "train_dp_world1", "train_dp_2rank"
 or "cli_dp_2rank", the last two counted in process 0, "train_graphs",
 whose K2 rows also give replay_kernels, the kernel nodes of one replay of
-4 steps, "train_tp_2rank", counted in process 0; "op" for K3, which is
-driven through its public op): its launches
+4 steps, "train_tp_2rank", counted in process 0, "serve_replicas",
+"dryrun", counted in process 0, or "cli_save_samples"; "op" for K3,
+which is driven through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
 version, its time, the plain version's, and the least time the card could
 take for the same work (bound_ms: bytes at the published 3.35 TB/s against
@@ -208,6 +234,7 @@ the port and the helpers in tests/torch_helpers.py (numpy and torch only).
 from __future__ import annotations
 
 import argparse
+import copy
 import json
 import math
 import os
@@ -454,28 +481,32 @@ def k1_compare(args, dt, what):
     return row, want
 
 
-def phase_k1(paths, dev, copy_gbs):
+def phase_k1(paths, dev, copy_gbs, buckets=(8, 32), key="k1",
+             what="serve bucket"):
+    """K1 against its plain version on `dev` at each bucket's serving batch
+    (f32 and bf16, odd samples flipped); the first bucket's bf16 row is
+    the record's time and bound. The record goes to RECORD[key]."""
     import torch
 
     out = {"max_abs_err": 0.0, "shapes": []}
-    for bucket in (8, 32):
+    for bucket in buckets:
         hb = host_batch((paths * 2)[:bucket], bucket)
         args = [torch.from_numpy(a.copy()).to(dev) for a in
                 (hb.canvas, hb.y0, hb.y1, hb.wy, hb.x0, hb.x1, hb.wx)]
         for j in (4, 5, 6):  # flip the odd samples: mirrored column taps
             args[j][1::2] = args[j][1::2].flip(1)
         for dt in (torch.float32, torch.bfloat16):
-            row, _ = k1_compare(args, dt, f"serve bucket {bucket}")
+            row, _ = k1_compare(args, dt, f"{what} {bucket}")
             row["bucket"] = bucket
             out["shapes"].append(row)
             out["max_abs_err"] = max(out["max_abs_err"], row["max_abs_err"])
-    serving = next(r for r in out["shapes"]
-                   if r["bucket"] == 8 and r["dtype"] == "bfloat16")
+    first = next(r for r in out["shapes"]
+                 if r["bucket"] == buckets[0] and r["dtype"] == "bfloat16")
     for k in ("ms", "launch_ms", "plain_ms"):
-        out[k] = serving[k]
-    say("[K1] serve bucket 8 -> bfloat16: " + bound(
-        out, serving["bytes"], serving["flops"], copy_gbs))
-    RECORD["k1"] = out
+        out[k] = first[k]
+    say(f"[K1] {what} {buckets[0]} -> bfloat16: " + bound(
+        out, first["bytes"], first["flops"], copy_gbs))
+    RECORD[key] = out
     return out
 
 
@@ -564,18 +595,22 @@ def add_k2_fwd(out, n, times, shape, esize, res, relu):
                                          times["library_err"])
 
 
-def k2_fwd_text(out, what):
+def k2_fwd_text(out, what, dname="bf16"):
     lib = ("F.batch_norm not timed" if out.get("library_ms") is None else
            f"F.batch_norm {out['library_ms']:.3f} ms at the epilogues "
            f"without residual and ReLU, where the kernel's launches take "
            f"{out['library_shapes_ms']:.3f} ms (outputs within "
            f"{out['library_max_abs_err']:.3g})")
-    return (f"per bf16 forward {what}: wrapper {out['ms']:.3f} ms, launches "
+    return (f"per {dname} forward {what}: wrapper {out['ms']:.3f} ms, launches "
             f"alone {out['launch_ms']:.3f} ms, plain {out['plain_ms']:.3f} "
             f"ms; {lib}")
 
 
-def phase_k2(calls, dev, copy_gbs):
+def phase_k2(calls, dev, copy_gbs, key="k2", what="at bucket 8"):
+    """K2 forward against its plain version at every epilogue shape of
+    `calls` (one bf16 forward's), f32 and bf16, with and without residual
+    and ReLU, on `dev`; the bf16 times summed over the forward. The record
+    goes to RECORD[key]. -> the record."""
     import torch
 
     from torch_helpers import bf16_ulps
@@ -639,10 +674,10 @@ def phase_k2(calls, dev, copy_gbs):
                         f"{t['plain_ms']:.3f} ms" + lib)
         del x32, r32, x, r
     say(f"[K2] all {len(shapes)} shapes x 8 variants agree; "
-        + k2_fwd_text(out, f"at bucket 8 over {sum(calls.values())} "
+        + k2_fwd_text(out, f"{what} over {sum(calls.values())} "
                            f"epilogues") + "; "
         + bound(out, out["bytes"], out["flops"], copy_gbs))
-    RECORD["k2"] = out
+    RECORD[key] = out
     return out
 
 
@@ -671,14 +706,19 @@ def k2_bwd_library(x, dy, stats, dx):
         return {"library_error": str(e).splitlines()[0]}
 
 
-def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS):
+def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS,
+                 dtype=None):
     """K2 backward, and the K2 forward that feeds it, at every epilogue
     shape of one train step of `clips` clips (of r2plus1d_18 unless the
     epilogue `calls` are another model's; `key` names that model or batch
-    in the record and the lines). Beside K2 backward at the epilogues
-    without residual and ReLU, k2_bwd_library. -> (backward's record,
-    forward's)."""
+    in the record and the lines), both dtypes checked and `dtype`'s
+    (bf16 unless given) times summed over the step. Beside K2 backward at
+    the epilogues without residual and ReLU, k2_bwd_library. ->
+    (backward's record, forward's)."""
     import torch
+
+    dtype = dtype or torch.bfloat16
+    dname = str(dtype)[6:]
 
     from torch_helpers import bf16_ulps
     from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
@@ -807,7 +847,7 @@ def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS):
                            "pass2_ms": p2_ms, "plan": plan,
                            "GB_per_s": by / 1e9 / (dev_ms / 1e3), **lib}
                     out["shapes"].append(row)
-                    if dt == torch.bfloat16:
+                    if dt == dtype:
                         out["ms"] += n * ms
                         out["plain_ms"] += n * plain
                         out["launches_ms"] += n * dev_ms
@@ -851,7 +891,7 @@ def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS):
            f"launches take {out['library_shapes_ms']:.3f} ms (dx within "
            f"{out['library_max_abs_err']:.3g})")
     say(f"[K2 bwd{key}] all {len(shapes)} shapes x 8 variants agree and "
-        f"repeat bit for bit; per bf16 backward pass at {clips} clips: "
+        f"repeat bit for bit; per {dname} backward pass at {clips} clips: "
         f"wrapper {out['ms']:.3f} ms, the launches alone "
         f"{out['launches_ms']:.3f} ms of which pass 2 {out['pass2_ms']:.3f} "
         f"ms, plain {out['plain_ms']:.3f} ms over {sum(calls.values())} "
@@ -859,7 +899,8 @@ def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS):
         + bound(out, out["bytes"], out["flops"], copy_gbs))
     say(f"[K2 fwd, train{key}] the same shapes and variants agree; "
         + k2_fwd_text(fwd, f"at {clips} clips over "
-                           f"{sum(calls.values())} epilogues") + "; "
+                           f"{sum(calls.values())} epilogues",
+                      dname) + "; "
         + bound(fwd, fwd["bytes"], fwd["flops"], copy_gbs))
     RECORD["k2_bwd" + key], RECORD["k2_fwd_train" + key] = out, fwd
     return out, fwd
@@ -3639,6 +3680,369 @@ def phase_tp(tmp, dev, smi, f32_plain):
     return backend, rs[0]["timed"]["launches"]
 
 
+# ------- the engine over replicas, the dry run and P11b (phases 21-23) ----
+
+REPLICA_BUCKETS = (8, 16, 32, 64, 128)  # phase 21's forward clips/s
+REPLICA_REQUEST = 10   # videos a phase-21 comparison embeds (one dispatch)
+P11B_STEPS = 2         # steps of phase 23's --save_samples epoch
+
+
+def free_port():
+    """A TCP port of localhost that was free a moment ago."""
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def served_engine(proto, devices, dtype, prepare=None, weights=None):
+    """The port's engine (r2plus1d_18 + mlp, phase 5's shapes and ladder)
+    over `devices`, each distinct model given its weights by `prepare`."""
+    from zeroshotvideoclassification_tpu_torch.serve import InferenceEngine
+
+    engine = InferenceEngine(
+        [f"video{k:02d}" for k in range(N_VIDEOS)], proto,
+        network="r2plus1d_18", head="mlp", weights=weights, n_clips=N_CLIPS,
+        clip_len=CLIP_LEN, size=SIZE, max_batch=MAX_BATCH,
+        compute_dtype=dtype, device=devices)
+    if prepare is not None:
+        for m in {id(m): m for m in engine.models}.values():
+            prepare(m)
+    return engine
+
+
+def through_serve_forever(engine, paths):
+    """One POST /classify of `paths` and a GET /stats through
+    serve.serve_forever (the cli.serve loop) on a thread of its own, the
+    server stopped after. -> (results, stats)."""
+    from zeroshotvideoclassification_tpu_torch.serve import server as srv
+
+    made = []
+
+    class Recorded(srv.ThreadingHTTPServer):  # the loop's server, to stop it
+        def __init__(self, *a, **kw):
+            super().__init__(*a, **kw)
+            made.append(self)
+
+    port, ready = free_port(), threading.Event()
+    srv.ThreadingHTTPServer = Recorded
+    try:
+        th = threading.Thread(target=srv.serve_forever, args=(
+            engine, "127.0.0.1", port), kwargs={"ready_event": ready},
+            daemon=True)
+        th.start()
+        check(ready.wait(60), "serve_forever did not start")
+        url = f"http://127.0.0.1:{port}"
+        body, _ = post(url + "/classify", {"videos": list(paths)})
+        stats = get(url + "/stats")
+    finally:
+        if made:
+            made[0].shutdown()
+        srv.ThreadingHTTPServer = Recorded.__mro__[1]
+    th.join(timeout=120)
+    check(not th.is_alive(), "serve_forever did not stop")
+    return body["results"], stats
+
+
+def replica_forward_rates(models, devices, buckets=REPLICA_BUCKETS):
+    """Forward clips/s at each bucket, the bucket's rows split over the
+    replicas as a dispatch splits them, each replica's forward on a thread
+    bound to its device, all at once; the host's clock around them (after
+    one warm-up call, which times cuDNN's algorithms), median of 3."""
+    import concurrent.futures as cf
+
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.train import eval_step
+
+    n = len(devices)
+    pools = [cf.ThreadPoolExecutor(1, initializer=torch.cuda.set_device,
+                                   initargs=(d,)) for d in devices]
+
+    def one(m, x):
+        eval_step(m, x)
+        torch.cuda.synchronize(x.device)
+
+    out = {}
+    try:
+        for b in buckets:
+            b = -(-b // n) * n
+            xs = [torch.rand((b // n, N_CLIPS, CLIP_LEN, SIZE, SIZE, 3),
+                             device=d).sub_(0.5).to(torch.bfloat16)
+                  for d in devices]
+            times = []
+            for rep in range(4):
+                t0 = time.perf_counter()
+                for f in [p.submit(one, m, x)
+                          for p, m, x in zip(pools, models, xs)]:
+                    f.result()
+                times.append(time.perf_counter() - t0)
+            s = statistics.median(times[1:])
+            out[b] = {"ms": s * 1e3, "clips_per_s": b * N_CLIPS / s}
+            del xs
+    finally:
+        for p in pools:
+            p.shutdown()
+    return out
+
+
+def phase_serve_replicas(tmp, paths, prepare, proto, expected, dev, smi,
+                         copy_gbs, sets=None):
+    """The engine over replicas: over [dev, dev], and over every visible GPU
+    where the host shows two or more (or over each device list of `sets`),
+    against phase 5's one-replica engine on the same weights. -> (the HTTP
+    request's launches on the first replica set, K1's and K2 forward's
+    records at a replica's shapes)."""
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.tools.port_checkpoint import (
+        port_checkpoint,
+    )
+
+    reqs = paths[:REPLICA_REQUEST]
+    one32 = served_engine(proto, dev, "float32", prepare)
+    one16 = served_engine(proto, dev, "bfloat16", prepare)
+    try:
+        want32, _ = one32.embed_paths(reqs)
+        want16, _ = one16.embed_paths(reqs)
+        want_cls = one16.classify(reqs)
+        # the served weights as a checkpoint for reload: the port model's
+        # state dict as a .pth, through tools/port_checkpoint
+        pth, npz = os.path.join(tmp, "served.pth"), os.path.join(tmp,
+                                                                 "served.npz")
+        torch.save({k: v.detach().cpu()
+                    for k, v in one32.model.state_dict().items()}, pth)
+        port_checkpoint(pth, "r2plus1d_18", "mlp", npz)
+        one_rates = replica_forward_rates([one16.model], [dev])
+    finally:
+        one32.close()
+    if sets is None:
+        sets = [[dev, dev]]
+        if torch.cuda.device_count() >= 2:
+            sets.append("cuda")
+    record, main_launches, kernels = {"sets": []}, None, None
+    for devices in sets:
+        rep32 = served_engine(proto, devices, "float32", prepare)
+        n, devs = rep32.n_shards, rep32.devices
+        tag = f"[serve_replicas {n} x {','.join(map(str, devs))}]"
+        try:
+            got32, ok = rep32.embed_paths(reqs)
+        finally:
+            rep32.close()
+        err32 = float(np.abs(got32 - want32).max())
+        check(ok.all() and err32 <= 1e-4, f"{tag} f32 rows: {err32}")
+        rep16 = served_engine(proto, devices, "bfloat16", prepare)
+        try:
+            fit = [-(-b // n) * n for b in (8, 16, 32, 64) if b < MAX_BATCH]
+            ladder = sorted(set(fit) | {-(-MAX_BATCH // n) * n})
+            check(rep16.batch_buckets == ladder
+                  and rep16.stats()["data_shards"] == n,
+                  f"{tag} ladder {rep16.batch_buckets}, want {ladder}")
+            t0 = time.perf_counter()
+            rep16.warmup()
+            warm_s = time.perf_counter() - t0
+            zero_counts()
+            got16, _ = rep16.embed_paths(reqs)
+            launches = read_counts()
+            check(launches == expect(n, 37 * n, 0),
+                  f"{tag} launches of one dispatch {launches}")
+            cos = [float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+                   for a, b in zip(got16, want16)]
+            check(min(cos) >= BF16_COSINE_BAR, f"{tag} bf16 cosine {cos}")
+            cls = [r["top_class"] for r in rep16.classify(reqs)]
+            check(cls == [r["top_class"] for r in want_cls],
+                  f"{tag} top classes {cls}")
+            # the main path: a request through the serve CLI's loop
+            d0 = rep16.stats()["dispatches"]
+            zero_counts()
+            results, stats = through_serve_forever(rep16, paths[:5])
+            http_launches = read_counts()
+            d = stats["engine"]["dispatches"] - d0
+            check(stats["engine"]["data_shards"] == n and d >= 1
+                  and stats["engine"]["device"] == ",".join(map(str, devs))
+                  and http_launches == expect(n * d, 37 * n * d, 0),
+                  f"{tag} /stats {stats}, launches {http_launches}")
+            for r, path in zip(results, paths[:5]):
+                want = f"video{int(expected[paths.index(path)]):02d}"
+                check(r["top_class"] == want,
+                      f"{tag} served {r['top_class']} for {path}, f32 says "
+                      f"{want}")
+            old = rep16.models
+            res = rep16.reload(npz)
+            check(all(all(m is not o for o in old) for m in rep16.models),
+                  f"{tag} a replica kept its model across reload")
+            again, _ = rep16.embed_paths(reqs)
+            rcos = min(float(a @ b / np.linalg.norm(a) / np.linalg.norm(b))
+                       for a, b in zip(again, got16))
+            check(rcos >= 0.99999, f"{tag} after reload: cosine {rcos}")
+            rates = replica_forward_rates(rep16.models, devs)
+            if main_launches is None:
+                main_launches = http_launches
+                last = devs[-1]
+                rows = -(-8 // n) * n // n  # a replica's rows at bucket 8
+                k1 = phase_k1(paths, last, copy_gbs, buckets=(rows,),
+                              key="k1_serve_replicas",
+                              what=f"serve_replicas on {last}, a replica's "
+                                   f"videos:")
+                calls = epilogue_calls(rep16.models[-1], torch.zeros(
+                    (rows, N_CLIPS, CLIP_LEN, SIZE, SIZE, 3), device=last,
+                    dtype=torch.bfloat16))
+                k2 = phase_k2(calls, last, copy_gbs, key="k2_serve_replicas",
+                              what=f"at a replica's {rows} videos on {last}")
+                kernels = (k1, k2)
+        finally:
+            rep16.close()
+        say(f"{tag} f32 rows {err32:.3g} from one replica (bar 1e-4), bf16 "
+            f"cosine >= {min(cos):.6f}, top classes equal; ladder "
+            f"{ladder}, data_shards {n}; warmup {warm_s:.2f} s; one "
+            f"dispatch {launches['video_transform']} K1 / "
+            f"{launches['bn_apply_relu']} K2; POST /classify through "
+            f"serve_forever: {d} dispatch(es), launches {http_launches}; "
+            f"reload {res['reloaded']} swapped every replica (cosine "
+            f"{rcos:.7f})")
+        for b, r in rates.items():
+            base = one_rates.get(b) or one_rates[min(
+                one_rates, key=lambda k: abs(k - b))]
+            p5 = RECORD.get("serve", {}).get("forward", {}).get(b)
+            say(f"{tag} forward bucket {b} ({b * N_CLIPS} clips) bf16: "
+                f"{r['ms']:.2f} ms = {r['clips_per_s']:.1f} clips/s; one "
+                f"replica {base['clips_per_s']:.1f} clips/s (the same "
+                f"method)" + (f", phase 5 {p5['clips_per_s']:.1f}"
+                              if p5 else "") + f"  ({smi})")
+        record["sets"].append({
+            "devices": [str(x) for x in devs], "f32_max_abs": err32,
+            "bf16_cosine": cos, "ladder": ladder, "warmup_s": warm_s,
+            "dispatch_launches": launches, "http_launches": http_launches,
+            "stats": stats, "reload_cosine": rcos, "forward": rates})
+    record["one_replica_forward"] = one_rates
+    one16.close()
+    RECORD["serve_replicas"] = record
+    return main_launches, kernels[0], kernels[1]
+
+
+def phase_dryrun(dev, smi, copy_gbs):
+    """dryrun_multichip on every visible GPU under NCCL where there are two
+    or more, else on 2 processes under gloo on cuda:0; its loss against one
+    process's on the same global batch; K2 forward and backward against
+    their plain versions at a process's float32 shapes first. -> (process
+    0's launches, K2 forward's record, K2 backward's)."""
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch import dryrun
+    from zeroshotvideoclassification_tpu_torch.config import Config
+    from zeroshotvideoclassification_tpu_torch.models import get_network
+    from zeroshotvideoclassification_tpu_torch.models.layers import (
+        init_weights,
+    )
+
+    gpus = torch.cuda.device_count()
+    n, backend = (gpus, None) if gpus >= 2 else (2, "gloo")
+    tp = dryrun.grid_tp(n)
+    rows = max(n, 2) // (n // tp)
+    model = get_network(Config(network="r2plus1d_18", head="mlp"))
+    init_weights(model, torch.Generator().manual_seed(0))
+    model = model.to(device=dev, memory_format=torch.channels_last_3d).eval()
+    calls = epilogue_calls(model, torch.zeros((rows, 1, 4, 32, 32, 3),
+                                              device=dev))
+    del model
+    k2b, k2f = phase_k2_bwd(calls, dev, copy_gbs, key="_dryrun", clips=rows,
+                            dtype=torch.float32)
+    t0 = time.perf_counter()
+    res = dryrun.dryrun_multichip(n, "cuda", backend=backend)
+    wall = time.perf_counter() - t0
+    one = dryrun.dryrun_step(n, dev)
+    tag = f"[dryrun {n} x {backend or 'nccl'}]"
+    say(f"{tag} mesh {res['mesh']} loss {res['loss']!r} (one process on the "
+        f"same global batch: {one['loss']!r}); process 0's step "
+        f"{res['step_seconds'] * 1e3:.1f} ms, one process's "
+        f"{one['step_seconds'] * 1e3:.1f} ms (host clock, the first step: "
+        f"cuDNN's algorithm search included); launches in process 0 "
+        f"{res['launches']}; the run {wall:.1f} s  ({smi})")
+    check(res["mesh"] == {"data": n // tp, "model": tp},
+          f"{tag} mesh {res['mesh']}")
+    check(math.isfinite(res["loss"])
+          and abs(res["loss"] - one["loss"]) <= 1e-4 * abs(one["loss"]),
+          f"{tag} loss {res['loss']} against {one['loss']}")
+    check(res["launches"] == {"bn_apply_relu": 74, "bn_apply_relu_bwd": 37},
+          f"{tag} launches {res['launches']}")
+    RECORD["dryrun"] = {"n": n, "backend": backend or "nccl", **res,
+                        "one_process_loss": one["loss"],
+                        "one_process_step_seconds": one["step_seconds"],
+                        "seconds": wall}
+    return res["launches"], k2f, k2b
+
+
+def phase_p11b(tmp, dev, smi, paths, prepare, proto):
+    """--save_samples through one epoch of cli.main (the GIF written, or
+    the warning printed where imageio is missing: either passes, and the
+    line says which); then tools/port_checkpoint of a .pth of a seeded
+    port model (its state dict in the reference's torchvision key names),
+    loaded by the engine as --weights and by reload, its float32
+    embeddings against the seeded model's. -> the epoch's launches."""
+    import contextlib
+    import glob
+    import io
+
+    import numpy as np
+    import torch
+
+    from zeroshotvideoclassification_tpu_torch.tools.port_checkpoint import (
+        main as port_main,
+    )
+
+    root = os.path.join(tmp, "p11b")
+    args = cli_argv(root, dev, "bfloat16", TRAIN_BS, TRAIN_BS * P11B_STEPS,
+                    "--save_samples")
+    err = io.StringIO()
+    with contextlib.redirect_stderr(err):
+        _, launches, _ = cli_epoch(args, "cli_save_samples", expect(
+            P11B_STEPS + 2, 37 * (P11B_STEPS + 1), 37 * P11B_STEPS))
+    sys.stderr.write(err.getvalue())
+    gifs = glob.glob(os.path.join(root, "runs", "**", "samples", "*.gif"),
+                     recursive=True)
+    warned = [ln for ln in err.getvalue().splitlines()
+              if ln.startswith("WARNING: --save_samples skipped (")]
+    check(len(gifs) + len(warned) == 1,
+          f"--save_samples: GIFs {gifs}, warnings {warned}")
+    say(f"[cli_save_samples] {'the GIF ' + gifs[0] if gifs else warned[0]} "
+        f"(K1 {launches['video_transform']} = {P11B_STEPS} steps, one "
+        f"evaluation dispatch and the dump)")
+
+    seeded = served_engine(proto, dev, "float32", prepare)
+    pth, npz = os.path.join(root, "seeded.pth"), os.path.join(root,
+                                                              "seeded.npz")
+    try:
+        torch.save({k: v.detach().cpu()
+                    for k, v in seeded.model.state_dict().items()}, pth)
+        out = io.StringIO()
+        with contextlib.redirect_stdout(out):
+            port_main(["--src", pth, "--network", "r2plus1d_18", "--out",
+                       npz])
+        want, _ = seeded.embed_paths(paths[:8])
+    finally:
+        seeded.close()
+    loaded = served_engine(proto, dev, "float32", weights=npz)
+    fresh = served_engine(proto, dev, "float32")
+    try:
+        by_weights, _ = loaded.embed_paths(paths[:8])
+        fresh.reload(npz)
+        by_reload, _ = fresh.embed_paths(paths[:8])
+    finally:
+        loaded.close()
+        fresh.close()
+    e1 = float(np.abs(by_weights - want).max())
+    e2 = float(np.abs(by_reload - want).max())
+    say(f"[port_checkpoint] {out.getvalue().strip()}; --weights "
+        f"embeddings {e1:.3g}, reload {e2:.3g} from the seeded model's "
+        f"(bar 1e-4)  ({smi})")
+    check(e1 <= 1e-4 and e2 <= 1e-4, f"ported weights: {e1}, {e2}")
+    RECORD["p11b"] = {"gif": gifs, "warning": warned, "launches": launches,
+                      "port_checkpoint_max_abs": [e1, e2]}
+    return launches
+
+
 def main(argv=None):
     p = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     p.add_argument("--json", default=None,
@@ -3684,6 +4088,8 @@ def main(argv=None):
                                      expected, dev, smi)
         train_calls = epilogue_calls(m32, torch.zeros(
             (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3), device=dev))
+        # phase 4's BN statistics for the served models of phases 21, 23
+        serve_bn = copy.deepcopy(m32).cpu()
         del m32
         torch.cuda.empty_cache()
         k2b, k2_train = phase_k2_bwd(train_calls, dev, copy_gbs)
@@ -3720,6 +4126,15 @@ def main(argv=None):
         release()
         _, tp_launches = phase_tp(tmp, dev, smi, f32_plain)
         del f32_plain
+        release()
+        replica_launches, k1_rep, k2_rep = phase_serve_replicas(
+            tmp, paths, lambda m: copy_bn(serve_bn, m), proto, expected,
+            dev, smi, copy_gbs)
+        release()
+        dry_launches, k2_dry, k2b_dry = phase_dryrun(dev, smi, copy_gbs)
+        release()
+        p11b_launches = phase_p11b(tmp, dev, smi, paths,
+                                   lambda m: copy_bn(serve_bn, m), proto)
         release()
         k4_trace(dev, k4, smi)
 
@@ -3823,6 +4238,27 @@ def main(argv=None):
         # on the whole batch of TRAIN_BS clips, the train row's shapes;
         # launches counted in process 0 (process 1's are held equal)
         *[row(name, source, at, "train_tp_2rank", tp_launches, rec)
+          for (name, source, at), rec in zip((
+              ("video_transform", "video_transform.cu", k1_at),
+              ("bn_apply_relu", "bn_apply_relu.cu", k2_at),
+              ("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173")),
+              (k1_train, k2_train, k2b))],
+        # the engine over replicas (phase 21): launches in one request
+        # through serve_forever, K1 and K2 forward at a replica's shapes on
+        # the last replica's device
+        row("video_transform", "video_transform.cu", k1_at,
+            "serve_replicas", replica_launches, k1_rep),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "serve_replicas",
+            replica_launches, k2_rep),
+        # the dry run (phase 22), float32 at a process's shapes; launches
+        # counted in process 0
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "dryrun",
+            dry_launches, k2_dry),
+        row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
+            "dryrun", dry_launches, k2b_dry),
+        # --save_samples (phase 23): the train row's shapes; K1 also makes
+        # the dump's batch
+        *[row(name, source, at, "cli_save_samples", p11b_launches, rec)
           for (name, source, at), rec in zip((
               ("video_transform", "video_transform.cu", k1_at),
               ("bn_apply_relu", "bn_apply_relu.cu", k2_at),

@@ -941,10 +941,45 @@ def test_engine_on_the_card(cuda, tmp_path):
         res = engine.classify(paths)
         assert [r["video"] for r in res] == paths
         assert all(r["top_class"] in "abcd" for r in res)
-        assert fused_video_transform_cuda.launches == k1 + 1
-        assert bn_apply_relu_cuda.launches == k2 + 37
+        # `cuda` is every visible GPU: one K1 and 37 K2 a replica
+        n = engine.n_shards
+        assert n == torch.cuda.device_count()
+        assert fused_video_transform_cuda.launches == k1 + n
+        assert bn_apply_relu_cuda.launches == k2 + 37 * n
     finally:
         engine.close()
+
+
+def test_engine_over_two_replicas_on_one_card(cuda, tmp_path):
+    """Two replicas on cuda:0 (two device threads, one model): float32
+    embeddings within 1e-5 of one replica's, one K1 and 37 K2 a replica
+    and dispatch, and the bucket rounded up to tile the replicas."""
+    from zeroshotvideoclassification_tpu_torch.serve import InferenceEngine
+
+    paths = []
+    for k in range(3):
+        p = tmp_path / f"v{k}.npy"
+        np.save(p, synthetic_clip(k, 12, 64, 86))
+        paths.append(str(p))
+    embed = np.random.default_rng(0).normal(size=(4, 300)).astype(np.float32)
+    kw = dict(n_clips=2, clip_len=4, size=32, max_batch=5,
+              compute_dtype="float32")
+    one = InferenceEngine(["a", "b", "c", "d"], embed, device="cuda:0", **kw)
+    two = InferenceEngine(["a", "b", "c", "d"], embed,
+                          device=["cuda:0", "cuda:0"], **kw)
+    try:
+        assert two.batch_buckets == [6] and two.stats()["data_shards"] == 2
+        want, _ = one.embed_paths(paths)
+        k1 = fused_video_transform_cuda.launches
+        k2 = bn_apply_relu_cuda.launches
+        got, ok = two.embed_paths(paths)
+        assert fused_video_transform_cuda.launches == k1 + 2
+        assert bn_apply_relu_cuda.launches == k2 + 74
+        assert ok.all()
+        np.testing.assert_allclose(got, want, atol=1e-5, rtol=0)
+    finally:
+        one.close()
+        two.close()
 
 
 @pytest.mark.parametrize("head", ["mlp", "linear"])

@@ -356,11 +356,12 @@ def test_train_steps_with_unequal_weight_sums(unit_run):
 
 # ------------------------------------------------ the evaluation ------------
 
-def test_four_process_evaluation_of_a_ragged_table(tmp_path):
-    """Experiment.evaluate on 4 processes over the 15-row test table (4 + 4
-    + 4 + 3, the last shard padded): every process reports the same
-    accuracy, top-5, split mean and std over exactly 15 samples, and these
-    are one process's evaluation of the same table."""
+@pytest.mark.parametrize("world", [4, 8])
+def test_four_process_evaluation_of_a_ragged_table(tmp_path, world):
+    """Experiment.evaluate on 4 (and 8) processes over the 15-row test
+    table (4 + 4 + 4 + 3; 2 x 7 + 1), the last shard padded: every process
+    reports the same accuracy, top-5, split mean and std over exactly 15
+    samples, and these are one process's evaluation of the same table."""
     argv = SMALL + ["--class_total", "10", "--bs", "2", "--device", "cpu",
                     "--save_path", str(tmp_path / "runs")]
     cfg = port_main.config_from_namespace(
@@ -372,7 +373,7 @@ def test_four_process_evaluation_of_a_ragged_table(tmp_path):
     sd = {k: v.clone() for k, v in model.state_dict().items()}
     inp = tmp_path / "eval.pt"
     torch.save({"argv": argv, "state_dict": sd}, inp)
-    outs, _ = launch(tmp_path, "eval", 4, inp)
+    outs, _ = launch(tmp_path, "eval", world, inp)
     rs = [torch.load(o, weights_only=True) for o in outs]
 
     table = build_datasets(cfg, None)["testing"][0]
@@ -383,7 +384,8 @@ def test_four_process_evaluation_of_a_ragged_table(tmp_path):
     exp.log.close()
     assert len(table) == 15
     for r in rs:
-        assert r["table_rows"] == 15 and r["local_rows"] == 4
+        assert r["table_rows"] == 15
+        assert r["local_rows"] == -(-15 // world)
         assert r["n_samples"] == 15
         for k in ("accuracy", "accuracy_top5", "accuracy_split_mean",
                   "accuracy_split_std"):

@@ -2,9 +2,10 @@
 under gloo: the grid against the JAX package's make_mesh, shard_head and
 its inverse, the model-group collectives, two float32 steps on grids of 1
 x 2 and 2 x 2 processes against one process and against the JAX package's
-step under state_shardings on the same mesh, the guard's agreement, a NaN
-batch, dropout across a model group, the width check, and the trainer at
---tp 2 against --tp 1 with its checkpoint loaded by both packages. The
+step under state_shardings on the same mesh, and on a grid of 4 x 2 (8
+processes) alike, the guard's agreement, a NaN batch, dropout across a
+model group, the width check, and the trainer at --tp 2 against --tp 1
+with its checkpoint loaded by both packages. The
 processes are tests/torch_parallel_worker.py's (modes tp, tp_epoch and
 cli); the sizes are tests/test_torch_parallel.py's: r3d_18, 2 frames of
 32x32, 8 clips a global batch, float32."""
@@ -208,7 +209,7 @@ def test_adam_moments_shard_and_gather_back_bit_for_bit(weights):
             np.testing.assert_array_equal(got[k], v, err_msg=k)
 
 
-# ------------------------------------------------ 1 x 2 and 2 x 2 steps -----
+# ------------------------------------------- 1 x 2, 2 x 2 and 4 x 2 steps --
 
 def jax_sharded_steps(model, params, state, data, ce, lr, mu, nu, count,
                       dp, tp):
@@ -245,9 +246,10 @@ def jax_sharded_steps(model, params, state, data, ce, lr, mu, nu, count,
 @pytest.fixture(scope="module")
 def tp_runs(tmp_path_factory):
     """Two float32 steps of r3d_18 on global batches of 8 clips (weights
-    1 x 6, 0 x 2: the two data shards of 2 x 2 sum 4 and 2) from one seeded
-    Adam state: one port process on the whole batches, and 2 processes as
-    1 x 2 and 4 as 2 x 2 (mode tp), and the JAX step on each mesh shape."""
+    1 x 6, 0 x 2: the two data shards of 2 x 2 sum 4 and 2, the four of
+    4 x 2 sum 2, 2, 2 and 0) from one seeded Adam state: one port process on
+    the whole batches, and 2 processes as 1 x 2, 4 as 2 x 2 and 8 as 4 x 2
+    (mode tp), and the JAX step on each mesh shape."""
     tmp = tmp_path_factory.mktemp("tp")
     rng = np.random.default_rng(10)
     with torch.enable_grad():
@@ -272,7 +274,7 @@ def tp_runs(tmp_path_factory):
             r = step(*[torch.from_numpy(a) for a in (xb, z, labels, w, ce)])
             one.append((float(r["loss"]), float(r["train_accuracy"])))
     out = {"one": one, "one_model": m, "init": params}
-    for dp, tp in ((1, 2), (2, 2)):
+    for dp, tp in ((1, 2), (2, 2), (4, 2)):
         ts, jm = jax_sharded_steps(model, params, state, data, ce, 1e-3, mu,
                                    nu, count, dp, tp)
         inp = tmp / f"tp_{dp}x{tp}.pt"
@@ -293,7 +295,7 @@ def tp_runs(tmp_path_factory):
     return out
 
 
-@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (4, 2)])
 def test_grid_collectives(tp_runs, dp, tp):
     """Each process's place on the grid; gather_model concatenates the
     model group's tensors in model-index order, gather_rows the data
@@ -319,7 +321,7 @@ def test_grid_collectives(tp_runs, dp, tp):
         assert torch.equal(res["copy_grad"], torch.full((3,), total))
 
 
-@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (4, 2)])
 def test_sharded_steps_match_one_process_and_jax(tp_runs, dp, tp):
     """Two float32 steps on a grid of dp x tp processes: every process
     reports the global loss and accuracy, within rtol 1e-4 of one port
@@ -362,7 +364,7 @@ def test_sharded_steps_match_one_process_and_jax(tp_runs, dp, tp):
     assert moved.max() > 1e-4
 
 
-@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2)])
+@pytest.mark.parametrize("dp,tp", [(1, 2), (2, 2), (4, 2)])
 def test_a_non_finite_shard_or_batch_changes_nothing(tp_runs, dp, tp):
     """A NaN in the fc1 gradient of the processes at model index 1 only:
     every process skips the step (the flag is agreed over the model

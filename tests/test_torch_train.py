@@ -612,21 +612,6 @@ def test_cli_main_trains_one_epoch_on_cpu(tmp_path, capsys):
         assert meta["accuracy"] == out["best_accuracy"]
 
 
-@pytest.mark.parametrize("flags,item", [(["--save_samples"], "P11b")])
-def test_cli_main_refuses_what_is_not_ported(flags, item, tmp_path,
-                                             monkeypatch):
-    """Refused with the ROADMAP item that ports it, before any dataset is
-    built."""
-    def no_datasets(*a, **kw):
-        raise AssertionError("datasets built before the refusal")
-
-    monkeypatch.setattr(port_main, "build_datasets", no_datasets)
-    base = ["--dataset", "synthetic", "--device", "cpu", "--save_path",
-            str(tmp_path)]
-    with pytest.raises(NotImplementedError, match=f"ROADMAP {item}"):
-        port_main.main(base + flags)
-
-
 class _Built(Exception):
     """Raised in place of building the datasets: the flags got through."""
 
@@ -634,10 +619,12 @@ class _Built(Exception):
 @pytest.mark.parametrize("flags", [
     ["--network", "resnet18"], ["--clip_pool", "embedding"], ["--fixconvs"],
     ["--head", "linear"], ["--network", "c3d"], ["--remat"],
-    ["--remat", "convs"], ["--debug_nans"], ["--steps_per_call", "4"]])
+    ["--remat", "convs"], ["--debug_nans"], ["--steps_per_call", "4"],
+    ["--save_samples"]])
 def test_cli_main_accepts_the_p8_flags(flags, tmp_path, monkeypatch):
-    """Each flag of P8 (the models and options) and of P11a
-    (--steps_per_call, --debug_nans) gets through the trainer's checks,
+    """Each flag of P8 (the models and options), of P11a
+    (--steps_per_call, --debug_nans) and of P11b (--save_samples) gets
+    through the trainer's checks,
     and the model it asks for is the JAX package's for the same flags: the
     same backbone, head, dropout, clip pooling, frozen convs and remat, and
     the same tensors under the bridge's names. Checked where the datasets

@@ -1,5 +1,6 @@
 """zeroshotvideoclassification_tpu_torch — the PyTorch/CUDA port of
-zeroshotvideoclassification_tpu, for one NVIDIA Hopper GPU.
+zeroshotvideoclassification_tpu, for NVIDIA Hopper GPUs (one, or one per
+process or per serving replica).
 
 The module paths mirror the JAX package, so each counterpart is found at the
 same place:
@@ -13,12 +14,18 @@ same place:
                    checkpoint reader
   data/            datasets, decoders, the host pipeline, host batch -> device
   text/            class names -> word2vec embeddings
-  parallel/        data parallelism over processes with one GPU each
-                   (torch.distributed: the process group, lockstep table
-                   shards, the collectives of BN, loss, gradients, eval)
-  serve/, cli/     the inference engine, micro-batcher and HTTP server; the
-                   `main` (training), `infer` and `serve` entry points
-  utils/           metrics logging and timers
+  parallel/        data and tensor parallelism over processes with one GPU
+                   each (torch.distributed: the process group, the grid,
+                   lockstep table shards, the collectives of BN, loss,
+                   gradients, eval)
+  serve/, cli/     the inference engine (a replica per GPU), micro-batcher
+                   and HTTP server; the `main` (training), `infer` and
+                   `serve` entry points
+  dryrun.py        the multi-device dry run (a train step over a dp x tp
+                   grid of processes)
+  tools/           the offline tools (checkpoint porting, word2vec cache,
+                   caption vocabulary, ActivityNet clips, captions)
+  utils/           metrics logging, timers, the --save_samples GIF dump
 
 The package stands alone: it imports torch and numpy, never JAX and nothing
 of the JAX package. Its host side (decoding, canvas packing, class-name

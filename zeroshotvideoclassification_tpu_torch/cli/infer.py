@@ -73,6 +73,24 @@ def resolve_device(device) -> torch.device:
     return device
 
 
+def resolve_devices(device) -> List[torch.device]:
+    """The serving engine's devices, one replica each: a plain `cuda` (no
+    index) is every visible GPU (torch.cuda.device_count(), which
+    CUDA_VISIBLE_DEVICES bounds), as the JAX engine meshes every local
+    chip; `cuda:N` is that GPU and `cpu` one CPU replica; a list or tuple
+    names each replica's device (an entry may repeat). cuda without a GPU
+    raises."""
+    if isinstance(device, (list, tuple)):
+        if not device:
+            raise ValueError("no devices")
+        return [resolve_device(d) for d in device]
+    device = resolve_device(device)
+    if device.type == "cuda" and device.index is None:
+        return [torch.device("cuda", i)
+                for i in range(torch.cuda.device_count())]
+    return [device]
+
+
 def load_model(config, weights: Optional[str], device):
     """-> (model in eval mode on `device`, checkpoint meta or None).
 

@@ -96,9 +96,12 @@ such a step on the device.
 
 The flags are the JAX trainer's (config.build_arg_parser, the same Config)
 plus --device, which defaults to cuda (cuda:LOCAL_RANK under a process
-group); asking for cuda without a GPU raises. What the port does not do
-yet raises NotImplementedError, naming its ROADMAP item, before any
-dataset is built: --save_samples (P11b).
+group); asking for cuda without a GPU raises. --save_samples writes, on
+process 0, the first clip of each epoch's first batch (its local host
+batch through the transform, float32) as
+<run>/samples/samples_train_epoch<E>_<class>.gif (utils/gif.py); any error
+of that dump (imageio missing, a full disk) is a warning on stderr and the
+run goes on, as in the JAX package.
 """
 
 from __future__ import annotations
@@ -177,18 +180,6 @@ from zeroshotvideoclassification_tpu_torch.utils.logging import (
 )
 
 
-def check_ported(config: Config) -> None:
-    """Raise NotImplementedError for every request the port cannot honour
-    yet, naming the ROADMAP item that will."""
-    asked = [
-        (config.save_samples, "--save_samples", "P11b"),
-    ]
-    for wanted, what, item in asked:
-        if wanted:
-            raise NotImplementedError(
-                f"{what} is not ported yet (ROADMAP {item})")
-
-
 def _find_latest_checkpoint(base: str):
     """Newest full-state checkpoint for --resume auto: last.npz (periodic)
     or checkpoint.npz (best-by-accuracy) under the base savename or any of
@@ -259,7 +250,6 @@ class Experiment:
 
     def __init__(self, config: Config,
                  datasets: Dict[str, List[VideoTable]], device="cuda"):
-        check_ported(config)
         self.config = config
         self.datasets = datasets
         self.device = rank_device(device)
@@ -477,6 +467,7 @@ class Experiment:
                                 step)
                 last_logged = len(losses)
 
+        sample_saved = not cfg.save_samples
         while True:
             with batch_t:
                 host = next(it, None)
@@ -486,6 +477,11 @@ class Experiment:
                 # the first step's collectives start together
                 sync_processes(f"train_dispatch_{epoch}")
             with model_t:
+                if not sample_saved and self.rank == 0:
+                    # before the batch is staged (under --steps_per_call
+                    # too), as the JAX package dumps before its scan
+                    self._save_sample(host, table, epoch)
+                    sample_saved = True
                 batch = device_batch(host, table.n_clips, cfg.clip_len,
                                      transform_dtype(cfg), self.device)
                 args = batch["x"], batch["z"], batch["label"], batch["weight"]
@@ -516,6 +512,34 @@ class Experiment:
                clips / max(total_t, 1e-9)))
         return {"loss": loss, "train_accuracy": acc,
                 "clips_per_sec": clips / max(total_t, 1e-9)}
+
+    def _save_sample(self, host, table: VideoTable, epoch: int) -> None:
+        """--save_samples: the first clip of this process's host batch as a
+        GIF (the reference's main.py:159-163, commented out there), from
+        the transform's float32 output (K1, or K4 / the antialiased
+        transform for still images). A debug dump must not end the run:
+        any error is a warning (the JAX package's words) and training goes
+        on."""
+        cfg = self.config
+        try:
+            from zeroshotvideoclassification_tpu_torch.utils.gif import (
+                batch2gif,
+            )
+
+            local = device_batch(host, table.n_clips, cfg.clip_len,
+                                 torch.float32, self.device)
+            sdir = os.path.join(self.savename, "samples")
+            os.makedirs(sdir, exist_ok=True)
+            batch2gif(
+                local["x"][0, 0].cpu().numpy(), int(host.label[0]),
+                os.path.join(sdir, f"samples_train_epoch{epoch}_"),
+                classes=table.classes if host.label[0] >= 0 else None,
+                # still images are normalised with Kinetics' mean and std,
+                # not as the video chain
+                mode="meanstd" if host.image_mode else "active")
+        except Exception as e:  # noqa: BLE001
+            print(f"WARNING: --save_samples skipped "
+                  f"({type(e).__name__}: {e})", file=sys.stderr)
 
     def _image_train_batch(self):
         """(global, local) of the halved SUN image-train batch.
@@ -701,7 +725,6 @@ def main(argv=None):
 
 def _main(args, argv):
     config = config_from_namespace(args)
-    check_ported(config)
     check_tensor_parallel(config, config.tp)
     if config.steps_per_call > 1:
         check_capturable(args.device)

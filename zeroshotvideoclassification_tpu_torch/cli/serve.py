@@ -1,9 +1,12 @@
-"""Always-on zero-shot classification service (HTTP, micro-batched), on one
-GPU.
+"""Always-on zero-shot classification service (HTTP, micro-batched), on
+every local GPU.
 
 Counterpart of zeroshotvideoclassification_tpu/cli/serve.py: the same flags
 (a copy of its parser) plus --device, and the same server (serve/server.py,
-the port's copy), in front of the port's InferenceEngine.
+the port's copy), in front of the port's InferenceEngine. --device cuda
+(the default) serves from every visible GPU, one replica each, each
+dispatch split over them on its rows as the JAX engine splits it over its
+'data' mesh; --device cuda:N serves from that GPU, cpu from the CPU.
 
   python -m zeroshotvideoclassification_tpu_torch.cli.serve \\
       --weights runs/.../checkpoint.npz --network r2plus1d_18 \\
@@ -32,7 +35,7 @@ from zeroshotvideoclassification_tpu_torch.serve import (
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         description="Serve zero-shot video classification over HTTP "
-                    "(PyTorch port, one GPU)")
+                    "(PyTorch port, every local GPU)")
     add_class_and_model_args(p)
     p.add_argument("--host", default="127.0.0.1")
     p.add_argument("--port", type=int, default=8000)
@@ -68,8 +71,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
                         "non-loopback --host; by default any path readable "
                         "by the process can be probed/decoded)")
     p.add_argument("--device", default="cuda",
-                   help="torch device (cuda, cuda:1, cpu); cuda without a "
-                        "GPU is an error")
+                   help="torch device (cuda: every visible GPU, one "
+                        "replica each; cuda:1; cpu); cuda without a GPU is "
+                        "an error")
     return p
 
 
@@ -89,8 +93,9 @@ def main(argv=None):
             engine.warmup()
         print(f"serving {args.network} ({len(class_names)} classes) on "
               f"http://{args.host}:{args.port}  (max_batch="
-              f"{args.max_batch}, window={args.max_wait_ms}ms, device="
-              f"{engine.device})", file=sys.stderr)
+              f"{args.max_batch}, window={args.max_wait_ms}ms, devices="
+              f"{','.join(str(d) for d in engine.devices)}, data_shards="
+              f"{engine.n_shards})", file=sys.stderr)
         serve_forever(engine, args.host, args.port,
                       max_wait_s=args.max_wait_ms / 1e3,
                       data_root=args.data_root,

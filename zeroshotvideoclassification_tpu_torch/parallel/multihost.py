@@ -437,24 +437,32 @@ def gather_model(t: torch.Tensor, dim: int) -> torch.Tensor:
 
 
 def run_local_ranks(fn, args: tuple, world_size: int, init_method: str,
-                    device_type: str = "cuda") -> None:
+                    device_type: str = "cuda",
+                    backend: Optional[str] = None) -> None:
     """Run fn(*args) in `world_size` new processes (spawned, not forked),
     one rank each on cuda:<rank> (or each on the CPU), every one joined to
     one group through `init_method` (for example "file:///path/to/store")
-    before fn runs. `fn` must be importable by name. Raises if any rank
-    fails; what fn returns is dropped, so it writes its results itself."""
+    before fn runs; `backend` as maybe_initialize picks it, except that
+    gloo on CUDA puts every rank on cuda:0 (as one card's tests of a group
+    do; NCCL refuses two processes on one device). `fn` must be
+    importable by name. Raises if any rank fails; what fn returns is
+    dropped, so it writes its results itself."""
     import torch.multiprocessing as mp
 
     mp.start_processes(_rank_entry, args=(world_size, init_method,
-                                          device_type, fn, args),
+                                          device_type, fn, args, backend),
                        nprocs=world_size, start_method="spawn", join=True)
 
 
-def _rank_entry(rank, world_size, init_method, device_type, fn, args):
+def _rank_entry(rank, world_size, init_method, device_type, fn, args,
+                backend=None):
     os.environ.update(RANK=str(rank), LOCAL_RANK=str(rank),
                       WORLD_SIZE=str(world_size))
-    device = f"cuda:{rank}" if device_type == "cuda" else device_type
-    maybe_initialize(init_method=init_method, rank=rank,
+    device = device_type
+    if device_type == "cuda":
+        device = f"cuda:{0 if backend == 'gloo' else rank}"
+        torch.cuda.set_device(device)
+    maybe_initialize(backend=backend, init_method=init_method, rank=rank,
                      world_size=world_size, device=device)
     try:
         fn(*args)

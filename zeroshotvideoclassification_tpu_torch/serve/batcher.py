@@ -16,8 +16,9 @@ DEVICE stage (dispatch + fetch + rank). A second worker drains a bounded
 hand-off queue, so the host decodes batch N+1 while the device runs batch
 N — under saturation the slower of the two stages sets throughput instead
 of their sum. Device dispatch stays single-threaded by construction (one
-stage-2 worker), which matches the engine's one device thread: the stages
-pad to the static shapes of the dispatch ladder internally.
+stage-2 worker); the engine fans each dispatch out to its replicas'
+device threads, and the stages pad to the static shapes of the dispatch
+ladder internally.
 """
 
 from __future__ import annotations

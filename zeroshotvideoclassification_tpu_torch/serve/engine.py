@@ -1,29 +1,37 @@
 """Inference engine: checkpoint + class names -> batched zero-shot scoring on
-one GPU.
+every local GPU, one replica each.
 
 Counterpart of zeroshotvideoclassification_tpu/serve/engine.py with the same
 public surface, so the MicroBatcher and HTTP server (serve/batcher.py,
 serve/server.py, copies of the JAX package's) drive it as they are: the
-dispatch-shape ladder {8, 16, 32, 64, max_batch}, pack_paths (host decode +
-pack, on the
+dispatch-shape ladder {8, 16, 32, 64, max_batch}, each bucket rounded up to
+a multiple of the replica count, pack_paths (host decode + pack, on the
 batcher's first stage), dispatch_packed / classify_packed (device work, on
 its second stage), classify, warmup, a strict hot-swap reload, stats and
 close. Each dispatch pads to the smallest bucket that fits, with zero-weight
 rows (the pipeline's broken-sample convention).
 
-Device work per dispatch: pinned H2D copy of the canvas, K1 (the fused
-transform), the model (cuDNN convs + K2 epilogues + float32 head), then the
-cosine ranking. All of it runs on ONE engine-owned thread, whichever thread
-calls: cuDNN's handles and its table of timed conv algorithms are
-per-thread in PyTorch, so warmup() prepares the very thread that serves
-(served from the batcher's own thread, the first live request took ~2 s
-longer than the next on an H100). One device only; several GPUs are later
-work.
+Devices (cli/infer.resolve_devices): a plain `cuda` is every visible GPU,
+as the JAX engine meshes every local chip on 'data'; `cuda:N` one GPU,
+`cpu` one CPU replica, or a list of devices (an entry may repeat). The
+engine holds one model per device. A dispatch splits the bucket's rows
+into n_shards contiguous slices, replica i taking rows [i b/n, (i+1) b/n)
+as JAX's 'data' sharding gives device i: pinned H2D copy of its slice, K1
+(the fused transform), the model (cuDNN convs + K2 epilogues + float32
+head); the rows come back in device order, and the cosine ranking runs on
+the first device. Each replica's device work runs on a thread of its own
+whose CUDA device is the replica's: cuDNN's handles and its table of timed
+conv algorithms are per-thread in PyTorch, so warmup() prepares, for every
+bucket's slice shape, the very thread that serves it (served from the
+batcher's own thread, the first live request took ~2 s longer than the
+next on an H100). A replica that fails raises; no other replica serves in
+its place.
 """
 
 from __future__ import annotations
 
 import concurrent.futures as cf
+import dataclasses
 import os
 import threading
 import time
@@ -36,7 +44,7 @@ from zeroshotvideoclassification_tpu_torch.cli.infer import (
     build_scoring_state,
     load_model,
     rank_results,
-    resolve_device,
+    resolve_devices,
 )
 from zeroshotvideoclassification_tpu_torch.config import (
     Config,
@@ -67,58 +75,86 @@ class InferenceEngine:
         device="cuda",
         clip_pool: str = "feature",
     ):
-        self.device = resolve_device(device)
+        self.devices = resolve_devices(device)
+        self.device = self.devices[0]  # where the ranking runs
+        self.n_shards = len(self.devices)
         self.class_names = list(class_names)
         self.class_embed = np.asarray(class_embed, np.float32)
         self._class_embed_dev = torch.from_numpy(self.class_embed).to(
             self.device)
         self.top_k = min(top_k, len(self.class_names))
         self.max_batch = max_batch
-        self.n_shards = 1
+
+        def _fit(b):  # bucket shapes tile the replicas (JAX's _fit)
+            return -(-b // self.n_shards) * self.n_shards
+
         # smallest bucket >= n wins: lone requests avoid the large shape's
         # padding, saturated batches still run at max_batch
         self.batch_buckets = sorted(
-            {b for b in (8, 16, 32, 64) if b < max_batch} | {max_batch})
+            {_fit(b) for b in (8, 16, 32, 64) if b < max_batch}
+            | {_fit(max_batch)})
         self.bucket_dispatches = {b: 0 for b in self.batch_buckets}
         # network, head and clip_pool pick the model (models.get_network)
         self.config = Config(network=network, head=head, bs=max_batch,
                              clip_len=clip_len, size=size, n_clips=n_clips,
                              compute_dtype=compute_dtype,
                              decode_scale=decode_scale, clip_pool=clip_pool)
+        # process-wide settings (TF32 off, cuDNN timing) and the first
+        # device's model; then one model for each other device
         model, self.eval_step = build_scoring_state(self.config, weights,
                                                     self.device)
-        # ONE attribute holds (weights_path, model) so a concurrent reload()
-        # swap is atomic: a dispatch that read the tuple finishes wholly on
-        # the old weights
-        self._scoring = (weights, model)
+        # ONE attribute holds (weights_path, a model per replica) so a
+        # concurrent reload() swap is atomic: a dispatch that read the
+        # tuple finishes wholly on the old weights, on every replica
+        self._scoring = (weights, self._replicas({self.device: model},
+                                                 weights))
         # one decode pool for the engine's life (pack_paths builds a
         # single-batch HostPipeline per request)
         self._decode_pool = cf.ThreadPoolExecutor(
             max_workers=self.config.decode_workers or (os.cpu_count() or 1))
-        # every device call runs here (module docstring)
-        self._device_thread = cf.ThreadPoolExecutor(
-            max_workers=1, thread_name_prefix="zsvc-device")
+        # every replica's device work runs on its own thread (module
+        # docstring)
+        self._device_threads = [
+            cf.ThreadPoolExecutor(max_workers=1,
+                                  thread_name_prefix=f"zsvc-device-{i}",
+                                  initializer=_bind, initargs=(d,))
+            for i, d in enumerate(self.devices)]
         self._stats_lock = threading.Lock()
         self._warmup_active = False
         self.n_dispatches = 0
         self.device_seconds = 0.0
+
+    def _replicas(self, built, weights):
+        """One model per replica: a model per distinct device (those in
+        `built` already made), each built and loaded strictly by
+        cli/infer.load_model; replicas on one device share its model."""
+        for d in self.devices:
+            if d not in built:
+                built[d] = load_model(self.config, weights, d)[0]
+        return tuple(built[d] for d in self.devices)
 
     @property
     def weights_path(self):
         return self._scoring[0]
 
     @property
-    def model(self):
+    def models(self):
+        """The replicas' models, in device order."""
         return self._scoring[1]
 
+    @property
+    def model(self):
+        return self._scoring[1][0]
+
     def close(self):
-        """Shut down the decode pool and the device thread (non-daemon
+        """Shut down the decode pool and the device threads (non-daemon
         threads). Idempotent; the engine must not be used afterwards."""
         self._decode_pool.shutdown(wait=True, cancel_futures=True)
-        self._device_thread.shutdown(wait=True, cancel_futures=True)
+        for th in self._device_threads:
+            th.shutdown(wait=True, cancel_futures=True)
 
     def _on_device_thread(self, fn, *args):
-        return self._device_thread.submit(fn, *args).result()
+        return self._device_threads[0].submit(fn, *args).result()
 
     # ------------------------------------------------------------- embed ----
     def pack_paths(self, paths: Sequence[str]):
@@ -135,26 +171,33 @@ class InferenceEngine:
         return {"paths": list(paths), "n": n, "bucket": bucket, "hb": hb}
 
     def dispatch_packed(self, packed):
-        """DEVICE half: H2D + transform + forward -> (emb [n, 300], ok [n])."""
+        """DEVICE half: H2D + transform + forward, each replica on its
+        slice of the rows -> (emb [n, 300], ok [n])."""
         n = packed["n"]
         if n == 0:
             return (np.zeros((0, self.class_embed.shape[1]), np.float32),
                     np.zeros((0,), bool))
-        _, model = self._scoring  # one read: one checkpoint per dispatch
+        _, models = self._scoring  # one read: one checkpoint per dispatch
+        hb, per = packed["hb"], packed["bucket"] // self.n_shards
         t0 = time.perf_counter()
-        out = self._on_device_thread(self._forward, model, packed["hb"])
+        futures = [th.submit(self._forward, m,
+                             _rows(hb, i * per, (i + 1) * per), d)
+                   for i, (th, m, d) in enumerate(zip(
+                       self._device_threads, models, self.devices))]
+        cf.wait(futures)  # every replica ends before one's error is raised
+        out = np.concatenate([f.result() for f in futures])
         if not self._warmup_active:  # warmup dispatches stay out of /stats
             with self._stats_lock:
                 self.device_seconds += time.perf_counter() - t0
                 self.n_dispatches += 1
                 self.bucket_dispatches[packed["bucket"]] += 1
         # decode success is a host fact (weight 0 = failed or padding)
-        w = np.asarray(packed["hb"].weight)
+        w = np.asarray(hb.weight)
         return out[:n], w[:n] > 0
 
-    def _forward(self, model, hb) -> np.ndarray:
+    def _forward(self, model, hb, device) -> np.ndarray:
         batch = device_batch(hb, self.config.n_clips, self.config.clip_len,
-                             transform_dtype(self.config), self.device)
+                             transform_dtype(self.config), device)
         return self.eval_step(model, batch["x"]).float().cpu().numpy()
 
     def embed_paths(self, paths: Sequence[str]):
@@ -167,15 +210,17 @@ class InferenceEngine:
         """Hot-swap the model from a JAX npz checkpoint without restarting.
 
         STRICT loads only (train/checkpoint.py): a live endpoint must never
-        end up serving a partly or fully random model. The new model is
-        built and loaded beside the old one, then swapped in with one
-        assignment; an in-flight dispatch finishes on the old one."""
+        end up serving a partly or fully random model. The new models (one
+        per device) are built and loaded beside the old ones, then swapped
+        in with one assignment; an in-flight dispatch finishes on the old
+        ones."""
         if not weights or weights == "none":
             raise ValueError(
                 "reload needs a checkpoint path (refusing to swap the "
                 "serving model to random-init weights)")
         model, meta = load_model(self.config, weights, self.device)
-        self._scoring = (weights, model)
+        self._scoring = (weights, self._replicas({self.device: model},
+                                                 weights))
         return {"reloaded": weights,
                 "epoch": meta.get("epoch"),
                 "accuracy": meta.get("accuracy")}
@@ -184,15 +229,19 @@ class InferenceEngine:
     def warmup(self):
         """Run every bucket of the ladder once before serving: the first
         call builds (or loads) the CUDA kernels, and each bucket's first
-        forward times cuDNN's conv algorithms for its shapes (see
-        cli/infer.build_scoring_state) on the engine's device thread, so no
-        live request waits on either. Nonexistent paths ride the
+        forward times cuDNN's conv algorithms for its slice shape (see
+        cli/infer.build_scoring_state) on every replica's device thread, so
+        no live request waits on either. Nonexistent paths ride the
         decode-failure (weight-0) convention; warmup dispatches are not
         counted in stats."""
         self._warmup_active = True
         try:
             for b in self.batch_buckets:
-                self.classify(["/nonexistent/__warmup__.npy"] * b)
+                # a bucket can exceed max_batch (the ladder rounds up to
+                # tile the replicas): cap the fill; smallest-fit still
+                # selects bucket b
+                self.classify(["/nonexistent/__warmup__.npy"]
+                              * min(b, self.max_batch))
         finally:
             self._warmup_active = False
 
@@ -228,5 +277,21 @@ class InferenceEngine:
                                   for b, c in self.bucket_dispatches.items()},
                 "classes": len(self.class_names),
                 "weights": self.weights_path,
-                "device": str(self.device),
+                "device": ",".join(str(d) for d in self.devices),
             }
+
+
+def _bind(device: torch.device) -> None:
+    """A replica thread's initializer: its CUDA device becomes the thread's
+    current one, so the allocator, the current stream and cuDNN's
+    per-thread handles are the replica's."""
+    if device.type == "cuda":
+        torch.cuda.set_device(device)
+
+
+def _rows(hb, start: int, stop: int):
+    """Rows [start, stop) of a host batch (every per-sample array)."""
+    per_sample = {f.name: getattr(hb, f.name)[start:stop]
+                  for f in dataclasses.fields(hb)
+                  if isinstance(getattr(hb, f.name), np.ndarray)}
+    return dataclasses.replace(hb, **per_sample)

@@ -52,7 +52,7 @@ from __future__ import annotations
 import json
 import os
 import tempfile
-from typing import Dict, Iterable, Optional
+from typing import Dict, Iterable, Optional, Tuple
 
 import numpy as np
 import torch
@@ -315,18 +315,19 @@ def _restore_optimizer(model, optimizer, flat) -> None:
                     st[slot] = torch.zeros_like(p)
 
 
-def _torch_source(path: str) -> Dict[str, torch.Tensor]:
-    """A .pth / .pth.tar / .pickle file -> {port state_dict key: tensor},
-    its kind told from its keys as the JAX package's
-    porting.detect_source_kind does: the reference fork's
+def torch_source(path: str) -> Tuple[Dict[str, torch.Tensor], str]:
+    """A .pth / .pth.tar / .pickle file -> ({port state_dict key: tensor},
+    kind), its kind told from its keys as the JAX package's
+    porting.detect_source_kind does: 'reference', the reference fork's
     checkpoint.pth.tar ({'state_dict', 'opt', 'accuracy'} with DataParallel
-    `module.` prefixes; its keys are the port's already), C3D's c3d.pickle
-    (DavideA/c3d-pytorch: conv1 ... fc8 at the top level, the port's C3D
-    keys; fc7 and fc8, which the reference's forward bypasses, skipped), or
-    a torchvision video-resnet state_dict (backbone keys, which the port
-    holds under `model.`; the classifier `fc.*` skipped). Read with
-    torch.load(weights_only=True), which admits the argparse Namespace the
-    reference stores beside the weights and refuses any other object."""
+    `module.` prefixes; its keys are the port's already), 'c3d', C3D's
+    c3d.pickle (DavideA/c3d-pytorch: conv1 ... fc8 at the top level, the
+    port's C3D keys; fc7 and fc8, which the reference's forward bypasses,
+    skipped), or 'torchvision', a video-resnet state_dict (backbone keys,
+    which the port holds under `model.`; the classifier `fc.*` skipped).
+    Read with torch.load(weights_only=True), which admits the argparse
+    Namespace the reference stores beside the weights and refuses any
+    other object."""
     import argparse
 
     with torch.serialization.safe_globals([argparse.Namespace]):
@@ -338,12 +339,12 @@ def _torch_source(path: str) -> Dict[str, torch.Tensor]:
     reference = any(k.startswith(("model.", "output2emb_proj.",
                                   "regressor.")) for k in sd)
     if reference:
-        return sd
+        return sd, "reference"
     if "conv5b.weight" in sd or ("conv1.weight" in sd and "fc6.weight" in sd):
         return {k: v for k, v in sd.items()
-                if not k.startswith(("fc7.", "fc8."))}
+                if not k.startswith(("fc7.", "fc8."))}, "c3d"
     return {f"model.{k}": v for k, v in sd.items()
-            if not k.startswith("fc.")}
+            if not k.startswith("fc.")}, "torchvision"
 
 
 def warm_start(path: str, model: nn.Module) -> int:
@@ -356,7 +357,7 @@ def warm_start(path: str, model: nn.Module) -> int:
     (num_batches_tracked, which the JAX package does not keep, is neither
     loaded nor counted)."""
     if path.endswith((".pth", ".pth.tar", ".pickle", ".pkl")):
-        sd = _torch_source(path)
+        sd, _ = torch_source(path)
     else:
         params, model_state, _ = read_checkpoint(path)
         sd = {}

@@ -1,4 +1,4 @@
-"""Utilities: metrics logging and timers."""
+"""Utilities: metrics logging and timers (GIF sample dumps: utils.gif)."""
 
 from zeroshotvideoclassification_tpu_torch.utils.logging import (
     MetricsLogger,
