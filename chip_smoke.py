@@ -281,6 +281,19 @@ def say(*parts):
     print(*parts, flush=True)
 
 
+_LAP = []
+
+
+def lap(name):
+    """The host's seconds since the previous lap (or the first call) into
+    RECORD["phase_seconds"][name]: where main()'s time goes, so that a
+    later phase can cut the depth of the ones that cost most."""
+    now = time.perf_counter()
+    if _LAP:
+        RECORD.setdefault("phase_seconds", {})[name] = now - _LAP[-1]
+    _LAP.append(now)
+
+
 def time_ms(fn, reps=10):
     """Median device time of fn() in ms (CUDA events, after one warm-up)."""
     import torch
@@ -3566,19 +3579,55 @@ def tp_step_job(rank, world, dev, out_dir, join):
                  str(TP)), dev, rows)
     calls = allreduce_calls(exp, (b["x"], b["z"], b["label"], b["weight"]),
                             ce)
+    # BN's running statistics after the steps, then after the model group's
+    # broadcast (what an evaluation or a checkpoint reads)
+    torch.cuda.synchronize()
+    before = bn_running(exp.model).cpu()
+    exp.agree_bn_statistics()
+    bn = (before, bn_running(exp.model).cpu())
+    agree_ms = []  # the broadcast's host time, between two synchronises
+    for _ in range(5):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        exp.agree_bn_statistics()
+        torch.cuda.synchronize()
+        agree_ms.append((time.perf_counter() - t0) * 1e3)
     exp.log.close()
     return {"losses": losses, "params": path, "timed": timed, "calls": calls,
             "grid": [g.n_data, g.tp, g.data_index, g.model_index],
-            "backend": torch.distributed.get_backend()}
+            "backend": torch.distributed.get_backend(), "bn": bn,
+            "agree_ms": statistics.median(agree_ms)}
 
 
 def tp_cli_job(rank, world, dev, out_dir, join):
     """Phase 20's trainer in one process: cli.main at --tp TP, one epoch of
     2 steps of TRAIN_BS clips (one data shard), the evaluation,
-    --checkpoint_every 1."""
-    return cli_job(dev, out_dir, join, cli_argv(
+    --checkpoint_every 1; BN's running statistics before and after each
+    of the model group's broadcasts (before the evaluation, before the
+    checkpoint) recorded."""
+    from zeroshotvideoclassification_tpu_torch.cli import main as train_cli
+
+    agree = train_cli.Experiment.agree_bn_statistics
+    seen = []
+
+    def recording(exp):
+        before = bn_running(exp.model).cpu()
+        agree(exp)
+        seen.append((before, bn_running(exp.model).cpu()))
+
+    train_cli.Experiment.agree_bn_statistics = recording
+    res = cli_job(dev, out_dir, join, cli_argv(
         out_dir, dev, "bfloat16", TRAIN_BS, 2 * TRAIN_BS,
         "--checkpoint_every", "1", "--tp", str(TP)))
+    return {**res, "bn": seen}
+
+
+def bn_apart(rs):
+    """BN's running statistics of the processes `rs` (each (before, after)
+    the model group's broadcast): -> (the largest difference between
+    processes 0 and 1 before it, bit-equal after it)."""
+    (b0, a0), (b1, a1) = rs
+    return float((b0 - b1).abs().max()), bool(a0.equal(a1))
 
 
 def phase_tp(tmp, dev, smi, f32_plain):
@@ -3590,8 +3639,11 @@ def phase_tp(tmp, dev, smi, f32_plain):
     process one K1 and 37 / 37 K2 a step, and 77 data-group, 3
     model-group and 1 whole-group (the replicas' gradients, averaged over
     the model group) all-reduces a step; the bf16 step's time (on one GPU a
-    correctness figure, not a scaling one); then cli.main at --tp TP with
-    the evaluation and a checkpoint (the head whole in it), and a
+    correctness figure, not a scaling one); BN's running statistics
+    bit-equal across the model group after its broadcast (how far apart
+    they were before it is printed); then cli.main at --tp TP with the
+    evaluation and a checkpoint (the head whole in it; the running
+    statistics bit-equal after the broadcast before each), and a
     one-process --evaluate of that checkpoint, which gives its accuracy.
     -> (backend, process 0's launches)."""
     import torch
@@ -3623,6 +3675,15 @@ def phase_tp(tmp, dev, smi, f32_plain):
               f"train_tp_2rank launches {r['timed']['launches']}")
         check(r["calls"] == {"data": 77, "world": 1, "model": 3},
               f"train_tp_2rank all-reduces a step {r['calls']}")
+    bn_steps = bn_apart([r["bn"] for r in rs])
+    say(f"[train_tp_2rank] BN's running statistics ({rs[0]['bn'][0].numel()}"
+        f" values) after {steps + 1} bf16 steps: {bn_steps[0]:.3g} apart "
+        f"across the model group before its broadcast, bit-equal after it: "
+        f"{bn_steps[1]}; the broadcast "
+        f"{[round(r['agree_ms'], 3) for r in rs]} ms (processes 0, 1; host "
+        f"clock between two synchronises, median of 5)")
+    check(bn_steps[1], "train_tp_2rank: BN's running statistics differ "
+          "across the model group after its broadcast")
     say(f"[train_tp_2rank] {backend}, --tp {TP} on 2 processes "
         f"{'on cuda:0 and cuda:1' if backend == 'nccl' else 'both on cuda:0'}"
         f" (one model group, {TRAIN_BS} clips each): 2 float32 steps, losses "
@@ -3652,6 +3713,17 @@ def phase_tp(tmp, dev, smi, f32_plain):
     for r in cli:  # 2 steps and one evaluation dispatch of 16 videos
         check(r["launches"] == expect(3, 37 * 3, 37 * 2),
               f"cli_tp_2rank launches {r['launches']}")
+    # one broadcast before the evaluation, one before the checkpoint
+    check(len(cli[0]["bn"]) == len(cli[1]["bn"]) == 2,
+          f"cli_tp_2rank: BN broadcasts {[len(r['bn']) for r in cli]}")
+    bn_cli = [bn_apart(pair) for pair in zip(cli[0]["bn"], cli[1]["bn"])]
+    say(f"[cli_tp_2rank] BN's running statistics across the model group "
+        f"(before the evaluation, before the checkpoint): "
+        f"{[round(d, 12) for d, _ in bn_cli]} apart before each broadcast, "
+        f"bit-equal after it: {[same for _, same in bn_cli]}")
+    check(all(same for _, same in bn_cli),
+          "cli_tp_2rank: BN's running statistics differ across the model "
+          "group at the evaluation or the checkpoint")
     run = os.path.dirname(os.path.join(cli[0]["root"], lasts[0]))
     fc1 = read_checkpoint(os.path.join(run, "last.npz"))[0]["head/fc1/w"]
     check(fc1.shape == (512, 512), f"the checkpoint's fc1 {fc1.shape}")
@@ -3673,6 +3745,9 @@ def phase_tp(tmp, dev, smi, f32_plain):
     check(acc["synthetic_test_accuracy"] == want,
           f"--evaluate of the --tp {TP} checkpoint: {acc} vs {want}")
     RECORD["train_tp_2rank"] = {
+        "bn_apart_before_broadcast": {"steps": bn_steps[0],
+                                      "cli": [d for d, _ in bn_cli]},
+        "bn_broadcast_ms": [r["agree_ms"] for r in rs],
         "backend": backend, "loss_rel": rel, "param_max_abs": dmax,
         "timed": [r["timed"] for r in rs], "calls": rs[0]["calls"],
         "seconds": wall, "cli": [r["summary"] for r in cli],
@@ -4068,24 +4143,31 @@ def main(argv=None):
     torch.backends.cudnn.allow_tf32 = False
     torch.backends.cudnn.benchmark = True
 
+    lap("start")
     smi = phase_env()
     phase_build()
+    lap('build')
     copy_gbs = measure_copy_bandwidth(dev)
+    lap('copy')
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         t0 = time.perf_counter()
         paths = make_videos(tmp)
         say(f"[data] {N_VIDEOS} seeded clips {FRAMES}x{HEIGHT}x{WIDTH}x3 "
             f"uint8 written in {time.perf_counter() - t0:.1f} s")
         k1 = phase_k1(paths, dev, copy_gbs)
+        lap('1 k1')
         m32, m16, proto, expected = phase_model(paths, dev)
+        lap('2 model')
         calls = epilogue_calls(m16, torch.zeros(
             (8, N_CLIPS, CLIP_LEN, SIZE, SIZE, 3), device=dev,
             dtype=torch.bfloat16))
         del m16
         k2 = phase_k2(calls, dev, copy_gbs)
+        lap('3 k2')
         # phase 4's weights: the same seeded init, and its BN statistics
         serve_launches = phase_serve(paths, lambda m: copy_bn(m32, m), proto,
                                      expected, dev, smi)
+        lap('5 serve')
         train_calls = epilogue_calls(m32, torch.zeros(
             (TRAIN_BS, 1, CLIP_LEN, SIZE, SIZE, 3), device=dev))
         # phase 4's BN statistics for the served models of phases 21, 23
@@ -4093,50 +4175,71 @@ def main(argv=None):
         del m32
         torch.cuda.empty_cache()
         k2b, k2_train = phase_k2_bwd(train_calls, dev, copy_gbs)
+        lap('6 k2_bwd')
         torch.cuda.empty_cache()
         train_launches, k1_train, train_summary = phase_train(
             tmp, dev, smi, copy_gbs)
+        lap('7 train')
         torch.cuda.empty_cache()
         phase_checkpoint(tmp, dev, smi, train_summary)
+        lap('7b checkpoint')
         torch.cuda.empty_cache()
         k4 = phase_k4(dev, copy_gbs, smi)
+        lap('8 k4')
         sun_launches, _ = phase_sun(tmp, dev, smi)
+        lap('9 sun')
         torch.cuda.empty_cache()
         k3_launches, k3 = phase_k3(dev, copy_gbs, smi)
+        lap('10 k3')
         torch.cuda.empty_cache()
         c3d_launches = phase_train_c3d(tmp, dev, smi)
+        lap('11 train_c3d')
         torch.cuda.empty_cache()
         serve_c3d_launches = phase_serve_c3d(paths, dev, smi)
+        lap('12 serve_c3d')
         torch.cuda.empty_cache()
         r3d_launches, k2_r3d, k2b_r3d = phase_train_resnet18(tmp, dev, smi,
                                                              copy_gbs)
+        lap('13 resnet18')
         torch.cuda.empty_cache()
         remat_launches = phase_remat(tmp, dev, smi)
+        lap('14 remat')
         torch.cuda.empty_cache()
         fix_launches = phase_fixconvs(tmp, dev)
+        lap('15 fixconvs')
         torch.cuda.empty_cache()
         k1_dp, k2b_dp, k2_dp = phase_dp_kernels(tmp, dev, copy_gbs)
+        lap('16 dp kernels')
         torch.cuda.empty_cache()
         dp1_launches, f32_plain = phase_dp_world1(tmp, smi)
+        lap('16 dp_world1')
         torch.cuda.empty_cache()
         _, dp2_launches = phase_dp_2rank(tmp, dev, smi, f32_plain)
+        lap('17 dp_2rank')
         cli_dp_launches = phase_dp_cli(tmp, dev, smi)
+        lap('18 dp_cli')
         torch.cuda.empty_cache()
         graph_launches = phase_graphs(tmp, dev, smi)
+        lap('19 graphs')
         release()
         _, tp_launches = phase_tp(tmp, dev, smi, f32_plain)
+        lap('20 tp')
         del f32_plain
         release()
         replica_launches, k1_rep, k2_rep = phase_serve_replicas(
             tmp, paths, lambda m: copy_bn(serve_bn, m), proto, expected,
             dev, smi, copy_gbs)
+        lap('21 serve_replicas')
         release()
         dry_launches, k2_dry, k2b_dry = phase_dryrun(dev, smi, copy_gbs)
+        lap('22 dryrun')
         release()
         p11b_launches = phase_p11b(tmp, dev, smi, paths,
                                    lambda m: copy_bn(serve_bn, m), proto)
+        lap('23 p11b')
         release()
         k4_trace(dev, k4, smi)
+        lap('8 k4 trace')
 
     outside = [m for m in sys.modules if m.split(".")[0] in (
         "jax", "jaxlib", "zeroshotvideoclassification_tpu")]
@@ -4267,6 +4370,9 @@ def main(argv=None):
     ]}
     check(all(k["launches"] > 0 for k in kernels["kernels"]),
           f"a kernel was never launched on a main path: {kernels}")
+    say("[phases] host seconds: " + ", ".join(
+        f"{name} {sec:.1f}" for name, sec in RECORD["phase_seconds"].items())
+        + f"; in all {_LAP[-1] - _LAP[0]:.1f}")
     if args.json:
         os.makedirs(os.path.dirname(os.path.abspath(args.json)),
                     exist_ok=True)

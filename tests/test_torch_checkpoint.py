@@ -9,7 +9,6 @@ keeps its order and re-raises a failed write; the profiler hook writes a
 trace. Weights come from numpy seeds; mc3_18 keeps the files small."""
 
 import argparse
-import glob
 import json
 import os
 
@@ -53,7 +52,7 @@ from zeroshotvideoclassification_tpu_torch.utils.profiler import (
     device_trace,
 )
 
-from torch_helpers import randomize_bn
+from torch_helpers import randomize_bn, remove_large_files
 
 ARCH = "mc3_18"
 CONFIG_JSON = json.dumps({"network": ARCH, "lr": 5e-4})
@@ -61,11 +60,11 @@ CONFIG_JSON = json.dumps({"network": ARCH, "lr": 5e-4})
 
 @pytest.fixture(autouse=True)
 def drop_checkpoints(tmp_path):
-    """Delete the test's checkpoint files when it ends: full-width models
-    make files of 140-400 MB each."""
+    """Delete the test's checkpoint files (and any other large file) when it
+    ends: full-width models make files of 140-400 MB each
+    (torch_helpers.remove_large_files)."""
     yield
-    for f in glob.glob(str(tmp_path / "**" / "*.npz"), recursive=True):
-        os.unlink(f)
+    remove_large_files(tmp_path)
 
 
 def _jax_params(arch, seed):

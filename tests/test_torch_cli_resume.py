@@ -36,7 +36,7 @@ from zeroshotvideoclassification_tpu_torch.config import config_from_namespace
 from zeroshotvideoclassification_tpu_torch.data.datasets import build_datasets
 from zeroshotvideoclassification_tpu_torch.train import read_meta
 
-from torch_helpers import randomize_bn
+from torch_helpers import randomize_bn, remove_large_files
 
 ARGS = [
     "--dataset", "synthetic", "--class_total", "4", "--train_samples", "16",
@@ -51,11 +51,11 @@ OVERRIDES = {"eval_n_clips_both": 2, "eval_n_clips_others": 2,
 
 @pytest.fixture(autouse=True)
 def drop_checkpoints(tmp_path):
-    """Delete the test's checkpoint files when it ends: full-width models
-    make files of 140-400 MB each."""
+    """Delete the test's checkpoint files (and any other large file) when it
+    ends: full-width models make files of 140-400 MB each
+    (torch_helpers.remove_large_files)."""
     yield
-    for f in glob.glob(str(tmp_path / "**" / "*.npz"), recursive=True):
-        os.unlink(f)
+    remove_large_files(tmp_path)
 
 
 def _run(save_path, extra=(), **overrides):

@@ -24,6 +24,15 @@ from zeroshotvideoclassification_tpu_torch.data.pipeline import (
 from zeroshotvideoclassification_tpu_torch.utils import gif
 
 from test_torch_parallel import SMALL, launch
+from torch_helpers import remove_large_files
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture

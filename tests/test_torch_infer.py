@@ -26,12 +26,20 @@ from zeroshotvideoclassification_tpu_torch.models.layers import init_weights
 
 from test_torch_model import jax_weights
 from test_torch_serve import CLASSES, _assert_same_results
-from torch_helpers import calibrate_c3d, synthetic_clip
+from torch_helpers import calibrate_c3d, remove_large_files, synthetic_clip
 
 CASES = {  # network: (n_clips, clip_len, size, videos)
     "r2plus1d_18": (2, 4, 32, 5),
     "c3d": (1, 16, 112, 2),
 }
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 def _weights(network, path):

@@ -23,9 +23,17 @@ from zeroshotvideoclassification_tpu_torch.train import (
     load_checkpoint,
 )
 
-from torch_helpers import randomize_bn
+from torch_helpers import randomize_bn, remove_large_files
 
 ARCHS = ["r2plus1d_18", "r3d_18", "mc3_18"]
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 def jax_weights(arch, seed=0):

@@ -55,7 +55,7 @@ from zeroshotvideoclassification_tpu_torch.train import (
 )
 
 from test_torch_train import jax_steps, jax_weights, port_model
-from torch_helpers import calibrate_bn, seed_adam
+from torch_helpers import calibrate_bn, remove_large_files, seed_adam
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 WORKER = os.path.join(ROOT, "tests", "torch_parallel_worker.py")
@@ -76,12 +76,11 @@ def grad_enabled():
 
 @pytest.fixture(autouse=True)
 def drop_large_files(tmp_path):
-    """Delete the test's checkpoints and tensor files when it ends: r3d_18's
-    npz files are ~400 MB each."""
+    """Delete the test's checkpoints, tensor files and the workers' outputs
+    when it ends: r3d_18's npz files are ~400 MB each
+    (torch_helpers.remove_large_files)."""
     yield
-    for pattern in ("*.npz", "*.pt"):
-        for f in tmp_path.rglob(pattern):
-            f.unlink()
+    remove_large_files(tmp_path)
 
 
 def launch(tmp, mode, world, inp, store=None):

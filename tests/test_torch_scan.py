@@ -49,9 +49,17 @@ from test_torch_train import (
     port_model,
     seeded_moments,
 )
-from torch_helpers import seed_adam
+from torch_helpers import remove_large_files, seed_adam
 
 K = 3
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(autouse=True)

@@ -13,11 +13,20 @@ import numpy as np
 import pytest
 
 from test_torch_model import jax_weights, _save_jax_checkpoint
+from torch_helpers import remove_large_files
 
 CLASSES = ["playing guitar", "riding a horse", "washing dishes",
            "juggling balls"]
 KW = dict(network="r2plus1d_18", head="mlp", n_clips=2, clip_len=4, size=32,
           max_batch=4, compute_dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(scope="module")
@@ -58,6 +67,7 @@ def slice_(tmp_path_factory):
     service.close()
     engine.close()
     jax_engine.close()
+    remove_large_files(tmp)
 
 
 def _post(url, payload):

@@ -15,10 +15,19 @@ import torch
 
 from test_torch_model import _save_jax_checkpoint, jax_weights
 from test_torch_serve import CLASSES, _assert_same_results
+from torch_helpers import remove_large_files
 
 N = 8  # replicas: the virtual devices of tests/conftest.py
 KW = dict(network="r3d_18", head="mlp", n_clips=1, clip_len=2, size=32,
           compute_dtype="float32")
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(scope="module")
@@ -57,6 +66,7 @@ def shards(tmp_path_factory):
            "ckpts": ckpts, "class_embed": class_embed}
     for e in (engine, one, jax_engine):
         e.close()
+    remove_large_files(tmp)
 
 
 @pytest.mark.parametrize("max_batch", [4, 12, 16])

@@ -31,8 +31,17 @@ from zeroshotvideoclassification_tpu_torch.models import bridge
 from zeroshotvideoclassification_tpu_torch.train import save_checkpoint
 
 from test_torch_train import jax_weights, seeded_moments
+from torch_helpers import remove_large_files
 
 SIZE, CLIP_LEN = 32, 4
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(autouse=True)

@@ -36,6 +36,16 @@ from zeroshotvideoclassification_tpu_torch.tools import (
 )
 from zeroshotvideoclassification_tpu_torch.train import warm_start
 
+from torch_helpers import remove_large_files
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
+
 
 def _npz(path, allow_pickle=False):
     with np.load(path, allow_pickle=allow_pickle) as z:

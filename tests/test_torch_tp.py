@@ -4,11 +4,12 @@ its inverse, the model-group collectives, two float32 steps on grids of 1
 x 2 and 2 x 2 processes against one process and against the JAX package's
 step under state_shardings on the same mesh, and on a grid of 4 x 2 (8
 processes) alike, the guard's agreement, a NaN batch, dropout across a
-model group, the width check, and the trainer at --tp 2 against --tp 1
-with its checkpoint loaded by both packages. The
-processes are tests/torch_parallel_worker.py's (modes tp, tp_epoch and
-cli); the sizes are tests/test_torch_parallel.py's: r3d_18, 2 frames of
-32x32, 8 clips a global batch, float32."""
+model group, BN's running statistics made one before an evaluation and a
+checkpoint, the width check, and the trainer at --tp 2 against --tp 1
+with its checkpoint loaded by both packages. The processes are
+tests/torch_parallel_worker.py's (modes tp, tp_epoch, tp_bn and cli); the
+sizes are tests/test_torch_parallel.py's: r3d_18, 2 frames of 32x32, 8
+clips a global batch, float32."""
 
 import copy
 import json
@@ -54,7 +55,7 @@ from zeroshotvideoclassification_tpu_torch.train import (
 
 from test_torch_parallel import ARCH, SMALL, launch
 from test_torch_train import jax_weights, port_model
-from torch_helpers import seed_adam
+from torch_helpers import remove_large_files, seed_adam
 
 HEAD = "output2emb_proj.layers"
 
@@ -69,11 +70,10 @@ def grad_enabled():
 
 @pytest.fixture(autouse=True)
 def drop_large_files(tmp_path):
-    """Delete the test's checkpoints and tensor files when it ends."""
+    """Delete the test's checkpoints, tensor files and the workers' outputs
+    when it ends (torch_helpers.remove_large_files)."""
     yield
-    for pattern in ("*.npz", "*.pt"):
-        for f in tmp_path.rglob(pattern):
-            f.unlink()
+    remove_large_files(tmp_path)
 
 
 # ------------------------------------------------------- the grid -----------
@@ -405,6 +405,37 @@ def test_linear_head_dropout_is_equal_across_a_model_group(tmp_path):
     plain = exp.train_one_epoch(0)["loss"]
     exp.log.close()
     assert plain != r0["summary"]["loss"]
+
+
+# ------------------------------------------ BN statistics across a group ----
+
+def test_a_model_group_evaluates_and_saves_one_set_of_bn_statistics(
+        tmp_path):
+    """cli.main's Experiment.run at --tp 2 on 2 processes (one epoch of 2
+    steps, the evaluation, --checkpoint_every 1), where after the steps
+    the member at model index 1 shifts its BN running statistics by a
+    relative 2^-20, as a GPU's cuDNN may round that member's forward:
+    before the evaluation and before the checkpoint both members make one
+    broadcast of every running mean and variance from model index 0 over
+    their model group, in the same order, so they end bit-equal, at
+    process 0's values, with one summary (losses and accuracies)."""
+    argv = SMALL + ["--class_total", "4", "--train_samples", "16", "--bs",
+                    "8", "--n_epochs", "1", "--checkpoint_every", "1",
+                    "--device", "cpu", "--tp", "2",
+                    "--save_path", str(tmp_path / "runs")]
+    inp = tmp_path / "bn.json"
+    inp.write_text(json.dumps(argv))
+    outs, _ = launch(tmp_path, "tp_bn", 2, inp)
+    r0, r1 = (torch.load(o, weights_only=True) for o in outs)
+    assert r0["grid"] == [1, 2, 0, 0] and r1["grid"] == [1, 2, 0, 1]
+    for a, b in zip(r0["stats"], r1["stats"]):
+        assert torch.equal(a, b)
+    numel = sum(t.numel() for t in r0["stats"])
+    want = [{"src": 0, "numel": numel, "group": [0, 1]}] * 2
+    assert r0["broadcasts"] == r1["broadcasts"] == want
+    for k in ("loss", "train_accuracy", "synthetic_test_accuracy",
+              "best_accuracy"):
+        assert r0["summary"][k] == r1["summary"][k], k
 
 
 # ------------------------------------------------ the trainer ---------------

@@ -45,9 +45,17 @@ from zeroshotvideoclassification_tpu_torch.train import (
     multistep_lr,
 )
 
-from torch_helpers import randomize_bn
+from torch_helpers import randomize_bn, remove_large_files
 
 ARCH = "r2plus1d_18"
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(autouse=True)

@@ -50,8 +50,17 @@ from test_torch_train import (
     jax_weights,
     port_model,
 )
+from torch_helpers import remove_large_files
 
 N_TENSORS = 2 * len(CONVS) + 2  # C3D's backbone: weights and biases
+
+
+@pytest.fixture(autouse=True)
+def drop_large_files(tmp_path):
+    """Delete the test's large files when it ends
+    (torch_helpers.remove_large_files)."""
+    yield
+    remove_large_files(tmp_path)
 
 
 @pytest.fixture(autouse=True)

@@ -1,10 +1,12 @@
 """Helpers shared by the PyTorch port's tests and chip_smoke.py: seeded
 synthetic clips, random BN statistics for JAX trees, a bf16 ulp distance,
-seeded BatchNorm statistics, seeded C3D weights that carry the input and a
-seeded Adam state.
+seeded BatchNorm statistics, seeded C3D weights that carry the input, a
+seeded Adam state, and the removal of a test's large files.
 Imports numpy and torch only."""
 
 from __future__ import annotations
+
+import pathlib
 
 import numpy as np
 import torch
@@ -159,3 +161,20 @@ def seed_adam(optimizer, model: nn.Module, seed: int, count: int = 1000):
             st[slot] = bridge.shard_head({key: t}, tp, index)[key].to(
                 p.device)
     return optimizer
+
+
+LARGE_FILE_BYTES = 1 << 20
+
+
+def remove_large_files(root) -> None:
+    """Delete every file of LARGE_FILE_BYTES or more under `root` (a test's
+    temporary directory), at any depth. The port's tests write full-width
+    checkpoints and tensor files of 100-750 MB; pytest keeps the temporary
+    directories of its last three runs, so left in place they would add up
+    to about 9 GB a whole tier-1 run and fill a small disk within two or
+    three runs, and the tests that write late in a run would then fail on
+    ENOSPC."""
+    for path in pathlib.Path(root).rglob("*"):
+        if (path.is_file() and not path.is_symlink()
+                and path.stat().st_size >= LARGE_FILE_BYTES):
+            path.unlink()

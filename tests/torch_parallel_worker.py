@@ -24,7 +24,14 @@ MODE:
            non-finite gradient in one shard, and a NaN batch on the last
            process;
   tp_epoch one epoch of an Experiment with the arguments in IN (a JSON
-           list), this process's parameters saved.
+           list), this process's parameters, the first dropout mask its
+           head draws and the generator's state before that draw saved;
+  tp_bn    cli.main's Experiment.run with the arguments in IN (a JSON list)
+           at --tp: after the epoch's steps the members past model index 0
+           shift their BN running statistics (as a GPU's cuDNN may round
+           their forward), and every broadcast this process makes is
+           recorded with its source and size; its running statistics and
+           summary saved.
 OUT gets a torch.save (unit, eval) or JSON (cli, jaxcli) of the results.
 Only the jaxcli mode imports JAX.
 """
@@ -319,6 +326,7 @@ def run_tp_epoch(world, rank, inp, out):
     import torch
 
     from zeroshotvideoclassification_tpu_torch.cli import main as port_main
+    from zeroshotvideoclassification_tpu_torch.models import layers
 
     with open(inp) as f:
         argv = json.load(f)
@@ -326,13 +334,70 @@ def run_tp_epoch(world, rank, inp, out):
                                           .parse_args(argv))
     exp = port_main.Experiment(cfg, port_main.build_datasets(cfg, None),
                                device="cpu")
+    first = {}
+    drop = layers.dropout
+
+    def recording(x, rate, generator, train):
+        if generator is not None and train and rate and not first:
+            # the mask this call draws, from a copy of its generator
+            state = generator.get_state()
+            copy = torch.Generator().set_state(state)
+            first.update(state=state, rate=rate,
+                         mask=torch.rand(x.shape, generator=copy) < 1 - rate)
+        return drop(x, rate, generator, train)
+
+    layers.dropout = recording
     summary = exp.train_one_epoch(0)
     exp.log.close()
     g = exp.grid
     torch.save({"summary": summary, "seed": exp.rng.initial_seed(),
                 "grid": [g.n_data, g.tp, g.data_index, g.model_index],
+                "first_dropout": first,
                 "state_dict": {k: v.detach().clone() for k, v in
                                exp.model.state_dict().items()}}, out)
+
+
+def run_tp_bn(world, rank, inp, out):
+    import torch
+    import torch.distributed as dist
+
+    from zeroshotvideoclassification_tpu_torch.cli import main as port_main
+
+    with open(inp) as f:
+        argv = json.load(f)
+    cfg = port_main.config_from_namespace(port_main.build_arg_parser()
+                                          .parse_args(argv))
+    exp = port_main.Experiment(cfg, port_main.build_datasets(cfg, None),
+                               device="cpu")
+    stats = [b for n, b in exp.model.named_buffers()
+             if n.endswith(("running_mean", "running_var"))]
+    train = exp.train_one_epoch
+
+    def shifted(epoch):
+        res = train(epoch)
+        if exp.grid.model_index:
+            with torch.no_grad():
+                for b in stats:
+                    b.mul_(1 + 2.0 ** -20)
+        return res
+
+    exp.train_one_epoch = shifted
+    calls = []
+    broadcast = dist.broadcast
+
+    def recording(tensor, src=None, group=None, *a, **kw):
+        calls.append({"src": src, "numel": tensor.numel(),
+                      "group": None if group is None
+                      else dist.get_process_group_ranks(group)})
+        return broadcast(tensor, src, group, *a, **kw)
+
+    dist.broadcast = recording
+    summary = exp.run()
+    dist.broadcast = broadcast
+    g = exp.grid
+    torch.save({"summary": summary, "broadcasts": calls,
+                "stats": [b.clone() for b in stats],
+                "grid": [g.n_data, g.tp, g.data_index, g.model_index]}, out)
 
 
 def run_jaxcli(world, rank, coord, inp, out):
@@ -365,4 +430,4 @@ if __name__ == "__main__":
         join(world, rank, store)
         {"unit": run_unit, "eval": run_eval, "cli": run_cli,
          "scan": run_scan, "tp": run_tp,
-         "tp_epoch": run_tp_epoch}[mode](world, rank, inp, out)
+         "tp_epoch": run_tp_epoch, "tp_bn": run_tp_bn}[mode](world, rank, inp, out)

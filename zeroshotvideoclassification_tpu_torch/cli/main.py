@@ -41,9 +41,10 @@ Every model of the JAX package trains here (models/heads.get_network):
 linear head), --head mlp / linear, --clip_pool feature / embedding,
 --fixconvs, --remat [full|convs]. The linear and C3D heads' dropout draws
 its masks from a generator on the model's device, seeded per epoch with
-(seed << 16) + epoch, plus data index << 48 on the processes of a group
-(each data shard draws its own masks; the processes of a model group, which
-see the same rows, draw the same).
+dropout_seed: (seed << 16) + epoch, plus data index x an odd 32-bit
+constant on the processes of a group (each data shard draws its own masks,
+on the CPU too, whose generator keeps 32 bits of its seed; the processes
+of a model group, which see the same rows, draw the same).
 
 Data parallelism (parallel/): under torchrun (its WORLD_SIZE / RANK /
 LOCAL_RANK), or where a caller opened a process group (as the tests' and
@@ -154,6 +155,7 @@ from zeroshotvideoclassification_tpu_torch.parallel import (
     sync_processes,
 )
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
+    broadcast_from_model,
     check_capturable,
     destroy,
     group_active,
@@ -201,6 +203,22 @@ def _find_latest_checkpoint(base: str):
                     continue  # mid-write / corrupt file: not a candidate
                 candidates.append((epoch, pref, p))
     return max(candidates)[2] if candidates else None
+
+
+# the data index's stride in a dropout seed: odd, so that the low 32 bits
+# (all a CPU torch.Generator keeps of its seed) differ for every data index
+# below 2^32, and the golden ratio's 32-bit fraction, so that they stay far
+# from the epoch's own offsets
+SHARD_SEED_STRIDE = 0x9E3779B9
+
+
+def dropout_seed(seed: int, epoch: int, data_index: int) -> int:
+    """The seed of data shard `data_index`'s dropout generator in `epoch`:
+    (seed << 16) + epoch at data index 0 (one process, --tp 1, and the
+    first data shard of a group), plus data_index * SHARD_SEED_STRIDE on the
+    others. The members of a model group share their data index, so they
+    draw the same masks."""
+    return (seed << 16) + epoch + data_index * SHARD_SEED_STRIDE
 
 
 def eval_batch_size(global_bs: int, n_clips: int, n_data: int,
@@ -371,6 +389,18 @@ class Experiment:
             self._ckpt = AsyncCheckpointer()
         return self._ckpt
 
+    def agree_bn_statistics(self) -> None:
+        """Under --tp, BN's running means and variances become those of the
+        model group's first member (one broadcast over the model group),
+        before each evaluation and each checkpoint: the replicas hold equal
+        parameters, but on a GPU each process's cuDNN may compute the
+        forward that moves the statistics with other bits, and the JAX
+        package holds one replicated state. Nothing without a model
+        axis."""
+        broadcast_from_model([b for n, b in self.model.named_buffers()
+                              if n.endswith(("running_mean",
+                                             "running_var"))])
+
     # -------------------------------------------------------- pretrained ----
     def _warm_start_pretrained(self) -> None:
         """Without --nopretrained, load <pretrained_dir>/<network>.npz,
@@ -410,7 +440,7 @@ class Experiment:
         # each data shard draws its own masks, as the JAX package draws one
         # over the global batch; a model group's processes draw the same
         rng = self.rng.manual_seed(
-            (cfg.seed << 16) + epoch + (self.grid.data_index << 48))
+            dropout_seed(cfg.seed, epoch, self.grid.data_index))
         it = iter(pipe)
         if cfg.progressbar:
             try:
@@ -573,6 +603,7 @@ class Experiment:
         batches = (device_batch(h, table.n_clips, cfg.clip_len,
                                 transform_dtype(cfg), self.device)
                    for h in source)
+        self.agree_bn_statistics()
         self.model.eval()  # BN running statistics; the train step sets train
         pred, true_e, true_l = extract_embeddings(
             lambda x: eval_step(self.model, x), batches,
@@ -652,6 +683,8 @@ class Experiment:
             save_best = improved and not cfg.evaluate
             save_last = bool(cfg.checkpoint_every and not cfg.evaluate
                              and (epoch + 1) % cfg.checkpoint_every == 0)
+            if save_best or save_last:
+                self.agree_bn_statistics()
             if (save_best or save_last) and self.grid.data_index == 0:
                 # the state comes to host numpy here, on this thread (under
                 # --tp process 0's model group gathers the head's shards);

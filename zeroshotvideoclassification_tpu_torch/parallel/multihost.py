@@ -26,9 +26,11 @@ shard of the mlp head). The reductions above run over the data group. The
 head's two Megatron-style operators run over the model group:
 copy_to_model (identity forward, all-reduce backward) before fc1 and
 reduce_from_model (all-reduce forward, identity backward) after fc2;
-the guarded Adam agrees its finite flag over it (agree_finite), and a
-checkpoint gathers the head's shards over it (gather_model). Without a
-grid (--tp 1) the data group is the whole group and nothing else changes.
+the guarded Adam agrees its finite flag over it (agree_finite), a
+checkpoint gathers the head's shards over it (gather_model), and BN's
+running statistics are made its first member's before each evaluation and
+checkpoint (broadcast_from_model). Without a grid (--tp 1) the data group
+is the whole group and nothing else changes.
 
 Under NCCL these collectives can be captured into a CUDA graph of the
 train step (train/step.make_scan_train_step): the clones of
@@ -397,6 +399,27 @@ def agree_finite(flag: torch.Tensor) -> torch.Tensor:
     t = flag.to(torch.int32).reshape(1)
     dist.all_reduce(t, op=dist.ReduceOp.MIN, group=g)
     return t.reshape(()).to(torch.bool)
+
+
+def broadcast_from_model(tensors) -> None:
+    """Give `tensors` (float32, one list of the same shapes on every
+    member) the values of the model group's first member (model index 0),
+    in place: one broadcast of a flat buffer over the model group, which
+    every member must call at the same point. Nothing without a model
+    axis. The replicas of a model group hold the same parameters (their
+    gradients are averaged, sum_gradients), but on a GPU each process's
+    cuDNN may compute their forward with other bits, so what the forward
+    alone moves (BN's running statistics) parts, and in bf16 the parting
+    grows from step to step."""
+    g = grid()
+    if g.model_group is None or not tensors:
+        return
+    flat = torch._utils._flatten_dense_tensors(tensors)
+    dist.broadcast(flat, src=dist.get_global_rank(g.model_group, 0),
+                   group=g.model_group)
+    for t, v in zip(tensors, torch._utils._unflatten_dense_tensors(
+            flat, tensors)):
+        t.copy_(v)
 
 
 def _gather(t: torch.Tensor, dim: int, group, index: int,
