@@ -1,0 +1,9 @@
+"""idle_share.train: the share of the traced window in which no operation
+ran on the device (process 0's card), in %."""
+
+
+def read(record):
+    trace = record.trace
+    if trace is None or trace.window_s <= 0:
+        return None
+    return 100.0 * (1.0 - trace.busy_s() / trace.window_s)
