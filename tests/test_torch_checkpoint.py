@@ -6,7 +6,8 @@ differ); strict loads refuse another network; warm_start takes a partial
 npz and torch sources (.pth with `module.` prefixes, torchvision backbone
 weights) as the JAX package's warm_start does; the asynchronous writer
 keeps its order and re-raises a failed write; the profiler hook writes a
-trace. Weights come from numpy seeds; mc3_18 keeps the files small."""
+trace and the spans' statistics. Weights come from numpy seeds; mc3_18
+keeps the files small."""
 
 import argparse
 import json
@@ -48,8 +49,8 @@ from zeroshotvideoclassification_tpu_torch.train.async_ckpt import (
     AsyncCheckpointer,
 )
 from zeroshotvideoclassification_tpu_torch.utils.profiler import (
-    StepStats,
     device_trace,
+    span,
 )
 
 from torch_helpers import randomize_bn, remove_large_files
@@ -339,14 +340,16 @@ def test_host_state_is_a_copy_of_the_moment(tmp_path):
 
 
 def test_profiler_trace_and_step_stats(tmp_path):
+    """The trace, and beside it the spans' statistics (the step's spans
+    there; utils/profiler.py)."""
     with device_trace(str(tmp_path / "traces")):
-        torch.ones(64, 64) @ torch.ones(64, 64)
-    traces = os.listdir(tmp_path / "traces")
-    assert len(traces) == 1 and traces[0].endswith(".json")
-    with open(tmp_path / "traces" / traces[0]) as f:
+        with span("train.step"):
+            torch.ones(64, 64) @ torch.ones(64, 64)
+    traces = sorted(os.listdir(tmp_path / "traces"))
+    assert len(traces) == 2 and traces[1].startswith("trace_")
+    assert all(t.endswith(".json") for t in traces)
+    with open(tmp_path / "traces" / traces[1]) as f:
         assert "traceEvents" in json.load(f)
-    stats = StepStats(warmup=1)
-    for _ in range(4):
-        stats.tick()
-    s = stats.summary(items_per_step=8)
-    assert s["n"] == 2 and s["items_per_sec"] > 0
+    with open(tmp_path / "traces" / traces[0]) as f:
+        stats = json.load(f)["train.step"]
+    assert stats["count"] >= 1 and stats["total_ms"] > 0

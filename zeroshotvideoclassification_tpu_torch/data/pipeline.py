@@ -18,11 +18,13 @@ Oversize sources (frames larger than the canvas) are host-pre-resized to the
 target short side first — a documented double-resample for rare inputs; the
 common UCF/HMDB/Kinetics frame sizes take the exact one-resample path.
 
-host_batch packs a list of paths into one batch with it. device_batch is
-the counterpart of the JAX device_batch: the uint8 canvas crosses from
-pinned memory without blocking, the transform (K1 on a GPU, its plain
-version on the CPU) writes [B, nc*cl, S, S, 3] in the compute dtype, and
-the result is viewed as [B, nc, cl, S, S, 3]. A still-image batch (SUN)
+Decode and pack run in the spans `host.decode` and `host.pack`
+(utils/profiler.py). host_batch packs a list of paths into one batch with
+it. device_batch is the counterpart of the JAX device_batch, in the span
+`feed`: the uint8 canvas crosses from pinned memory without blocking, the
+transform (K1 on a GPU, its plain version on the CPU) writes
+[B, nc*cl, S, S, 3] in the compute dtype, and the result is viewed as
+[B, nc, cl, S, S, 3]. A still-image batch (SUN)
 carries one image per sample and goes to the antialiased transform when it
 ships a trajectory (Config.sun_antialias, the default), else to the 2-tap
 image-motion transform (K4 on a GPU, its plain version on the CPU).
@@ -53,6 +55,7 @@ from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
     image_motion_transform,
     video_transform,
 )
+from zeroshotvideoclassification_tpu_torch.utils.profiler import span
 
 
 def _fit_to_canvas(frames: np.ndarray, canvas_hw, short_side: int) -> np.ndarray:
@@ -354,13 +357,16 @@ class HostPipeline:
         with pool_cm as pool:
             for start in range(0, n, self.bs):
                 ids = list(range(start, min(start + self.bs, n)))
-                decoded = list(pool.map(decode, ids))
+                with span("host.decode"):
+                    decoded = list(pool.map(decode, ids))
                 labels = [int(t.label_idx[order[i]]) for i in ids]
                 # zero-weight pad the final partial batch to static shape
                 while len(decoded) < self.bs:
                     decoded.append(None)
                     labels.append(-1)
-                yield self._assemble(decoded, labels)
+                with span("host.pack"):
+                    batch = self._assemble(decoded, labels)
+                yield batch
 
     def __iter__(self) -> Iterator[HostBatch]:
         """Background-thread prefetch (depth = Config.prefetch_depth):
@@ -427,7 +433,9 @@ _TAPS = ("y0", "y1", "wy", "x0", "x1", "wx")
 def _to_device(a, device: torch.device) -> torch.Tensor:
     t = torch.from_numpy(a)
     if device.type == "cuda":
-        return t.pin_memory().to(device, non_blocking=True)
+        with span("feed.pin"):
+            t = t.pin_memory()
+        return t.to(device, non_blocking=True)
     return t.to(device)
 
 
@@ -452,8 +460,14 @@ def host_batch(paths: Sequence[str], config, bucket: int,
 def device_batch(host_batch, n_clips: int, clip_len: int,
                  out_dtype: torch.dtype, device) -> Dict[str, torch.Tensor]:
     """HostBatch -> {'x': [B, nc, cl, S, S, 3] out_dtype, 'z', 'label',
-    'weight'} on `device`."""
-    device = torch.device(device)
+    'weight'} on `device`, in the span `feed` (each array's pinning, on a
+    GPU, in a `feed.pin`)."""
+    with span("feed"):
+        return _device_batch(host_batch, n_clips, clip_len, out_dtype,
+                             torch.device(device))
+
+
+def _device_batch(host_batch, n_clips, clip_len, out_dtype, device):
     canvas = _to_device(host_batch.canvas, device)
     if host_batch.image_mode:
         from zeroshotvideoclassification_tpu_torch.data.stillimages import (

@@ -46,6 +46,7 @@ from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     grid,
     group_active,
 )
+from zeroshotvideoclassification_tpu_torch.utils import profiler
 
 
 class Conv3d(nn.Conv3d):
@@ -107,7 +108,20 @@ def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
     count. Without a group
     they are the plain means of this batch: packing, slicing and dividing
     by a count tensor add autograd nodes and launches that a host-paced
-    step feels."""
+    step feels.
+
+    The forward runs in the span `bn.stats`; while a profiler records, its
+    backward, from the first gradient to reach mean or var to the gradient
+    of x being complete, is the bracket `bn.stats.backward`
+    (utils/profiler.py)."""
+    with profiler.span("bn.stats"):
+        mean, var, new_mean, new_var = _statistics(x, running_mean,
+                                                   running_var, momentum)
+        profiler.backward_bracket("bn.stats.backward", (mean, var), x)
+    return mean, var, new_mean, new_var
+
+
+def _statistics(x, running_mean, running_var, momentum):
     dims = tuple(range(x.dim() - 1))
     count = float(math.prod(x.shape[:-1]))
     m0 = running_mean.detach()

@@ -1,10 +1,12 @@
 """Micro-batching request queue for the serving front-end.
 
 Copy of zeroshotvideoclassification_tpu/serve/batcher.py (the port keeps
-its own host side). The serving forward amortizes with batch (PERF.md has
-the port's clips/s per dispatch bucket), so a production endpoint must
-coalesce concurrent requests into one device dispatch instead of
-dispatching per request. This module is the generic
+its own host side), but for one addition: each request's wait, from its
+submit to its batch being taken, is recorded as `serve.queue_wait` in the
+port's span registry (utils/profiler.add). The serving forward amortizes
+with batch (PERF.md has the port's clips/s per dispatch bucket), so a
+production endpoint must coalesce concurrent requests into one device
+dispatch instead of dispatching per request. This module is the generic
 half: callers submit items and block on a Future; a single worker thread
 drains the queue into batches of at most `max_batch`, waiting at most
 `max_wait_s` after the first item of a batch arrives (classic
@@ -29,6 +31,8 @@ import threading
 import time
 from concurrent.futures import Future
 from typing import Callable, Deque, List, Optional, Sequence
+
+from zeroshotvideoclassification_tpu_torch.utils import profiler
 
 
 class MicroBatcher:
@@ -150,6 +154,9 @@ class MicroBatcher:
             items = [it for it, _, _ in batch]
             futures = [f for _, f, _ in batch]
             submitted = [t for _, _, t in batch]
+            taken = time.monotonic()
+            for t in submitted:
+                profiler.add("serve.queue_wait", taken - t)
             self.n_requests += len(batch)
             self.n_batches += 1
             self.batch_sizes.append(len(batch))

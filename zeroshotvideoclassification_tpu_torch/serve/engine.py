@@ -34,7 +34,6 @@ import concurrent.futures as cf
 import dataclasses
 import os
 import threading
-import time
 from typing import List, Optional, Sequence
 
 import numpy as np
@@ -55,6 +54,7 @@ from zeroshotvideoclassification_tpu_torch.data.pipeline import (
     host_batch,
 )
 from zeroshotvideoclassification_tpu_torch.ops.cdist import cosine_distances
+from zeroshotvideoclassification_tpu_torch.utils import profiler
 
 
 class InferenceEngine:
@@ -123,6 +123,8 @@ class InferenceEngine:
         self._warmup_active = False
         self.n_dispatches = 0
         self.device_seconds = 0.0
+        # the warm-ups' share of the span registry: name -> [count, s]
+        self._warmup_spans = {}
 
     def _replicas(self, built, weights):
         """One model per replica: a model per distinct device (those in
@@ -179,16 +181,16 @@ class InferenceEngine:
                     np.zeros((0,), bool))
         _, models = self._scoring  # one read: one checkpoint per dispatch
         hb, per = packed["hb"], packed["bucket"] // self.n_shards
-        t0 = time.perf_counter()
-        futures = [th.submit(self._forward, m,
-                             _rows(hb, i * per, (i + 1) * per), d)
-                   for i, (th, m, d) in enumerate(zip(
-                       self._device_threads, models, self.devices))]
-        cf.wait(futures)  # every replica ends before one's error is raised
-        out = np.concatenate([f.result() for f in futures])
+        with profiler.span("serve.dispatch") as dispatch:
+            futures = [th.submit(self._forward, m,
+                                 _rows(hb, i * per, (i + 1) * per), d)
+                       for i, (th, m, d) in enumerate(zip(
+                           self._device_threads, models, self.devices))]
+            cf.wait(futures)  # every replica ends before one's error raises
+            out = np.concatenate([f.result() for f in futures])
         if not self._warmup_active:  # warmup dispatches stay out of /stats
             with self._stats_lock:
-                self.device_seconds += time.perf_counter() - t0
+                self.device_seconds += dispatch.seconds
                 self.n_dispatches += 1
                 self.bucket_dispatches[packed["bucket"]] += 1
         # decode success is a host fact (weight 0 = failed or padding)
@@ -196,9 +198,11 @@ class InferenceEngine:
         return out[:n], w[:n] > 0
 
     def _forward(self, model, hb, device) -> np.ndarray:
-        batch = device_batch(hb, self.config.n_clips, self.config.clip_len,
-                             transform_dtype(self.config), device)
-        return self.eval_step(model, batch["x"]).float().cpu().numpy()
+        with profiler.span("serve.replica"):
+            batch = device_batch(hb, self.config.n_clips,
+                                 self.config.clip_len,
+                                 transform_dtype(self.config), device)
+            return self.eval_step(model, batch["x"]).float().cpu().numpy()
 
     def embed_paths(self, paths: Sequence[str]):
         """paths (<= max_batch, loader kinds freely mixed) ->
@@ -233,8 +237,9 @@ class InferenceEngine:
         cli/infer.build_scoring_state) on every replica's device thread, so
         no live request waits on either. Nonexistent paths ride the
         decode-failure (weight-0) convention; warmup dispatches are not
-        counted in stats."""
+        counted in stats(), nor their spans in span_stats()."""
         self._warmup_active = True
+        before = profiler.registry().totals()
         try:
             for b in self.batch_buckets:
                 # a bucket can exceed max_batch (the ladder rounds up to
@@ -243,6 +248,13 @@ class InferenceEngine:
                 self.classify(["/nonexistent/__warmup__.npy"]
                               * min(b, self.max_batch))
         finally:
+            after = profiler.registry().totals()
+            with self._stats_lock:
+                for name, (count, seconds, _) in after.items():
+                    c0, s0, _ = before.get(name, (0, 0.0, 0.0))
+                    w = self._warmup_spans.setdefault(name, [0, 0.0])
+                    w[0] += count - c0
+                    w[1] += seconds - s0
             self._warmup_active = False
 
     # ----------------------------------------------------------- classify ---
@@ -265,6 +277,20 @@ class InferenceEngine:
     def _distances(self, emb: np.ndarray) -> np.ndarray:
         return cosine_distances(torch.from_numpy(emb).to(self.device),
                                 self._class_embed_dev).cpu().numpy()
+
+    def span_stats(self) -> dict:
+        """The process's spans (utils/profiler.py) without this engine's
+        warm-ups: name -> {count, total_ms}."""
+        totals = profiler.registry().totals()
+        with self._stats_lock:
+            warm = {k: tuple(v) for k, v in self._warmup_spans.items()}
+        out = {}
+        for name, (count, seconds, _) in sorted(totals.items()):
+            c0, s0 = warm.get(name, (0, 0.0))
+            if count > c0:
+                out[name] = {"count": count - c0,
+                             "total_ms": round(1e3 * (seconds - s0), 3)}
+        return out
 
     def stats(self) -> dict:
         with self._stats_lock:

@@ -6,7 +6,7 @@ the batcher's stage-1 worker coalesces concurrent requests and decodes them
 (GIL-free native decoders) while its stage-2 worker runs the device
 dispatch for the PREVIOUS batch (two-stage pipeline, serve/batcher.py).
 Copy of zeroshotvideoclassification_tpu/serve/server.py in front of the
-port's InferenceEngine.
+port's InferenceEngine; its /stats adds the port's spans.
 
 Endpoints:
   POST /classify   {"videos": ["/path/a.mp4", ...]}           -> results[]
@@ -20,7 +20,9 @@ Endpoints:
                    become (part-)random-init. Subject to the same
                    --data_root admission as /classify.
   GET  /healthz    liveness + model identity
-  GET  /stats      request/batch/dispatch counters + latency percentiles
+  GET  /stats      request/batch/dispatch counters + latency percentiles,
+                   and `spans`: count and total ms of each of the port's
+                   spans (utils/profiler.py), the engine's warm-ups left out
 
 Trust model: /classify takes FILESYSTEM PATHS and decodes them with the
 serving process's privileges, so a client can probe file existence and read
@@ -131,7 +133,8 @@ class ZeroShotService:
     def stats(self) -> dict:
         return {"http_requests": self.n_http,
                 "batcher": self.batcher.stats(),
-                "engine": self.engine.stats()}
+                "engine": self.engine.stats(),
+                "spans": self.engine.span_stats()}
 
     def close(self, drain: bool = False, drain_timeout: float = 30.0):
         """drain=True: stop accepting, let accepted requests finish first,

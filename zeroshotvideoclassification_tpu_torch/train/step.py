@@ -47,6 +47,7 @@ from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     grid,
     group_active,
 )
+from zeroshotvideoclassification_tpu_torch.utils.profiler import span
 
 
 @dataclasses.dataclass
@@ -128,30 +129,41 @@ def make_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
     gradients and the optimizer's moments are float32. Under --fixconvs
     the backbone's parameters get no gradient, and the optimizer leaves
     them (and their moments) as they are. `step.body` is the same step
-    without the host's count (`step.state.step`), as a graph captures it."""
+    without the host's count (`step.state.step`), as a graph captures it.
+
+    The body runs in spans (utils/profiler.py): `train.step` around it all,
+    and within it `train.forward` (model and loss), `train.backward`,
+    `train.grad_sum` (sum_gradients), `train.optimizer` (the guarded Adam,
+    its guard included) and `train.metrics` (the nearest class and the
+    metrics' all-reduce)."""
     model.set_compute_dtype(compute_dtype, masters=True)
     state = TrainState(model, optimizer)
 
     def body(x, z, labels, weight, class_embed,
              rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
-        model.train()
-        optimizer.zero_grad(set_to_none=True)
-        with torch.enable_grad():  # whatever mode the caller is in
-            emb = model(x, generator=rng)
-            loss = masked_mse(emb, z, weight)
-        loss.backward()
-        sum_gradients(model.parameters())
-        optimizer.step()
-        with torch.no_grad():
-            pred = nearest_class(emb, class_embed)
-            correct = (pred == labels).float() * weight
-            # the global loss and accuracy: one all-reduce of the shares
-            totals = all_reduce_(torch.stack([
-                loss.detach(), torch.sum(correct), torch.sum(weight)]),
-                data_group())
-            acc = totals[1] / torch.clamp_min(totals[2], 1.0) * 100.0
-        return {"loss": totals[0], "train_accuracy": acc,
-                "finite": optimizer.last_finite.clone()}
+        with span("train.step"):
+            model.train()
+            optimizer.zero_grad(set_to_none=True)
+            # autograd on, whatever mode the caller is in
+            with span("train.forward"), torch.enable_grad():
+                emb = model(x, generator=rng)
+                loss = masked_mse(emb, z, weight)
+            with span("train.backward"):
+                loss.backward()
+            with span("train.grad_sum"):
+                sum_gradients(model.parameters())
+            with span("train.optimizer"):
+                optimizer.step()
+            with span("train.metrics"), torch.no_grad():
+                pred = nearest_class(emb, class_embed)
+                correct = (pred == labels).float() * weight
+                # the global loss and accuracy: one all-reduce of the shares
+                totals = all_reduce_(torch.stack([
+                    loss.detach(), torch.sum(correct), torch.sum(weight)]),
+                    data_group())
+                acc = totals[1] / torch.clamp_min(totals[2], 1.0) * 100.0
+            return {"loss": totals[0], "train_accuracy": acc,
+                    "finite": optimizer.last_finite.clone()}
 
     def step(x, z, labels, weight, class_embed,
              rng: Optional[torch.Generator] = None) -> Dict[str, torch.Tensor]:
@@ -210,7 +222,9 @@ def make_scan_train_step(model: nn.Module, optimizer: torch.optim.Optimizer,
         the groups' `lr` before every replay (set_lr).
 
     Launch counters in the kernels' wrappers count while a graph is
-    captured and not when it replays. The graphs keep their node lists
+    captured and not when it replays; so do the step's spans
+    (make_train_step): the eager steps and the captures run them, a replay
+    runs none. The graphs keep their node lists
     (keep_graph), so `step.graphs[K][0].debug_dump(path)` writes one out
     as DOT; `step.captured["seconds"]` is the host time the capture and
     the instantiation took.
