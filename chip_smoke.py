@@ -52,6 +52,20 @@ result line) if it fails:
      against its plain version and timed there too, wrapper and launch
      alone, with F.batch_norm as in phase 3 (f32 within 2e-6, bf16 within 1
      ulp; summed over one 16-clip forward);
+  6b. the BN statistics' ops (ops/bn_stats.py; they replace no TPU
+     kernel: XLA computed these statistics in the JAX package) at every
+     train-mode BN of one r2plus1d_18 train step of BN_STATS_CLIPS (64, the
+     train cell's) clips, f32 and bf16: the sums within 1e-5 of float64
+     sums and bit-equal across two runs, the moments and both gradients bit
+     for bit the plain versions'; bf16 times summed over the step: the
+     wrappers, the launches alone of the sums and their gradient, the plain
+     versions, the bound, the sums alone beside torch.batch_norm_stats (the
+     library's one call for per-channel batch statistics, SyncBatchNorm's);
+     then tools/check_bn_brackets.py in a process of its own (a traced
+     64-clip step: the ops' kernels' device time, the sums' launches, 37 of
+     each a step, and the brackets against the kernels); the ops' launches
+     on the main paths are counted in phases 7 on (37 of each op and of
+     each gradient a train step of r2plus1d_18);
   7. train: the training CLI (cli/main.py) on the synthetic dataset, full
      width r2plus1d_18 + mlp, bf16 compute with float32 masters, batch 16:
      8 steps through the entry point with the kernels' launch counts read
@@ -224,7 +238,8 @@ trace (trace_ms; null for the others), and the time of the one
 PyTorch call that computes the same function where there is one
 (library_ms; for K2 forward F.batch_norm and for K2 backward aten's
 native_batch_norm_backward in eval mode, at the epilogues without residual
-and ReLU, with the kernel's launches alone there in library_shapes_ms).
+and ReLU, with the kernel's launches alone there in library_shapes_ms; for
+the BN sums torch.batch_norm_stats, beside the sums alone in sums_ms).
 The last is
 {"ok": true, "device": {...}}. Without a CUDA device it exits 2 and prints
 no result. --json PATH also writes every measurement to PATH. It imports
@@ -260,6 +275,7 @@ F32_FLOPS_PER_S = 67e12     # H100 SXM float32 outside the tensor cores
 BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 BN_SEED = 1  # BN scale and bias of every model built here
 LAUNCH_RUN = 20  # launches between two events when a launch is timed alone
+BN_STATS_CLIPS = 64  # the train cell's batch: phase 6b's shapes
 # bf16 against the CPU f32 forward, per video: the two runs round at
 # different places (bf16 conv inputs, outputs and epilogues on one side,
 # none on the other, layers.py:71-74 in the JAX package), ~2^-9 relative per
@@ -919,10 +935,154 @@ def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS,
     return out, fwd
 
 
+def phase_bn_stats(calls, dev, copy_gbs, clips=BN_STATS_CLIPS):
+    """6b: the BN statistics' ops at every train-mode BN of one train step
+    of `clips` clips (the shapes of phase 6's `calls`, widened), checked in
+    f32 and bf16 and timed in bf16; then the traced step of
+    tools/check_bn_brackets.py in a process of its own. -> the record."""
+    import torch
+
+    from torch_helpers import bn_sums_ref64
+    from zeroshotvideoclassification_tpu_torch.ops.bn_stats import (
+        bn_moments_cuda,
+        bn_moments_grad_cuda,
+        bn_moments_grad_plain,
+        bn_moments_plain,
+        bn_sums_cuda,
+        bn_sums_grad_cuda,
+        bn_sums_grad_plain,
+        bn_sums_plain,
+        grad_prepare,
+        sums_prepare,
+    )
+
+    per_shape = {}
+    for (shape, _, _), n in calls.items():
+        key = (clips, *shape[1:])
+        per_shape[key] = per_shape.get(key, 0) + n
+    out = {"clips": clips, "shapes": [], "ms": 0.0, "launch_ms": 0.0,
+           "plain_ms": 0.0, "sums_ms": 0.0, "library_ms": 0.0, "bytes": 0,
+           "flops": 0, "max_abs_err": 0.0, "sums_max_rel_err": 0.0}
+    g = torch.Generator(device=dev).manual_seed(2)
+    for shape, n in sorted(per_shape.items(), key=lambda kv: -math.prod(
+            kv[0])):
+        c = shape[-1]
+        centre = torch.randn(c, device=dev, generator=g) * 3
+        m0 = centre + 0.1 * torch.randn(c, device=dev, generator=g)
+        rv = torch.rand(c, device=dev, generator=g) + 0.5
+        dsums = torch.randn(2, c, device=dev, generator=g)
+        dmean, dvar = torch.randn(2, c, device=dev, generator=g)
+        x32 = torch.randn(shape, device=dev, generator=g).add_(centre)
+        rows = torch.full((1,), float(math.prod(shape[:-1])), device=dev)
+        for dt in (torch.float32, torch.bfloat16):
+            x = x32.to(dt)
+            what = f"BN stats {shape} {str(dt)[6:]}"
+            sums = bn_sums_cuda(x, m0)
+            again = bn_sums_cuda(x, m0)
+            dx = bn_sums_grad_cuda(x, m0, dsums)
+            mom = bn_moments_cuda(sums[:2], rows, m0, rv, 0.1)
+            dmom = bn_moments_grad_cuda(dmean, dvar, mom[4:], rows)
+            torch.cuda.synchronize()
+            check(torch.equal(sums, again), f"{what}: two runs differ")
+            ref = bn_sums_ref64(x, m0)
+            rel = max(float(((sums[k].double() - ref[k]).abs()
+                             / ref[2 if k == 0 else 1]).max())
+                      for k in (0, 1))
+            check(rel <= 1e-5 and torch.equal(sums[2], m0),
+                  f"{what}: sums off float64 by {rel:.3g}")
+            check(torch.equal(dx, bn_sums_grad_plain(x, m0, dsums)),
+                  f"{what}: the gradient is not the plain version's")
+            check(torch.equal(mom, bn_moments_plain(sums[:2], rows, m0, rv,
+                                                    0.1))
+                  and torch.equal(dmom, bn_moments_grad_plain(
+                      dmean, dvar, mom[4:], rows)),
+                  f"{what}: the moments are not the plain version's")
+            out["sums_max_rel_err"] = max(out["sums_max_rel_err"], rel)
+            if dt != torch.bfloat16:
+                continue
+
+            def wrappers():
+                bn_sums_cuda(x, m0)
+                bn_moments_cuda(sums[:2], rows, m0, rv, 0.1)
+                bn_moments_grad_cuda(dmean, dvar, mom[4:], rows)
+                bn_sums_grad_cuda(x, m0, dsums)
+
+            def plain():
+                s = bn_sums_plain(x, m0)
+                mp = bn_moments_plain(s[:2], rows, m0, rv, 0.1)
+                bn_moments_grad_plain(dmean, dvar, mp[4:], rows)
+                bn_sums_grad_plain(x, m0, dsums)
+
+            rows2d = x.view(-1, c)  # channels innermost: the library's
+            # channels-last path, one read of x for mean and invstd
+            launch_s, _ = sums_prepare(x, m0)
+            launch_g, _ = grad_prepare(x, m0, dsums)
+            t = {"ms": time_ms(wrappers), "plain_ms": time_ms(plain, reps=3),
+                 "launch_ms": run_ms(lambda: (launch_s(), launch_g())),
+                 "sums_ms": time_ms(lambda: bn_sums_cuda(x, m0)),
+                 "library_ms": time_ms(
+                     lambda: torch.batch_norm_stats(rows2d, 1e-5))}
+            # the sums read x, the gradient reads x and writes dx; float32
+            # operations: 4 an element for the sums, 3 for the gradient
+            by, fl = 3 * x.numel() * x.element_size(), 7 * x.numel()
+            for k in ("ms", "plain_ms", "launch_ms", "sums_ms",
+                      "library_ms"):
+                out[k] += n * t[k]
+            out["bytes"] += n * by
+            out["flops"] += n * fl
+            out["shapes"].append({"shape": list(shape), "calls": n,
+                                  "sums_rel_err": rel, **t,
+                                  "GB_per_s": by / 1e9 / (
+                                      t["launch_ms"] / 1e3)})
+            say(f"[BN stats] {'x'.join(map(str, shape))} bf16 x{n}: sums "
+                f"within {rel:.2g} of float64, the rest bit for bit; "
+                f"wrappers {t['ms']:.4f} ms, sums + gradient launches "
+                f"alone {t['launch_ms']:.4f} ms "
+                f"({by / 1e9 / (t['launch_ms'] / 1e3):.0f} GB/s), plain "
+                f"{t['plain_ms']:.3f} ms; the sums alone "
+                f"{t['sums_ms']:.4f} ms, torch.batch_norm_stats "
+                f"{t['library_ms']:.4f} ms")
+            del launch_s, launch_g, rows2d
+        del x32, x, sums, again, dx, mom, dmom
+    text = bound(out, out["bytes"], out["flops"], copy_gbs)
+    say(f"[BN stats] per bf16 train step at {clips} clips over "
+        f"{sum(per_shape.values())} BNs: wrappers {out['ms']:.3f} ms, "
+        f"launches alone {out['launch_ms']:.3f} ms, plain "
+        f"{out['plain_ms']:.3f} ms; the sums alone {out['sums_ms']:.3f} ms "
+        f"against torch.batch_norm_stats {out['library_ms']:.3f} ms; "
+        + text)
+    torch.cuda.empty_cache()
+    path = os.path.join(tempfile.mkdtemp(prefix="bn_brackets_"), "out.json")
+    root = os.path.dirname(os.path.abspath(__file__))
+    proc = subprocess.run(
+        [sys.executable, os.path.join(root, "tools", "check_bn_brackets.py"),
+         "--clips", str(clips), "--steps", "3", "--json", path],
+        cwd=root, capture_output=True, text=True, timeout=600)
+    check(proc.returncode == 0, f"check_bn_brackets: {proc.stderr[-2000:]}")
+    with open(path) as f:
+        traced = json.load(f)
+    say(f"[BN stats] a traced {clips}-clip step: {json.dumps(traced)}")
+    check(all(traced[k] == 37 for k in ("sums_ops", "sums_nodes",
+                                        "sums_launches",
+                                        "sums_grad_launches")),
+          f"BN stats: not every train-mode BN took the op: {traced}")
+    out["trace_ms"] = (traced["sums_kernels_fwd_ms"]
+                       + traced["sums_kernels_bwd_ms"])
+    out["traced"] = traced
+    RECORD["bn_stats"] = out
+    return out
+
+
 def kernel_counts():
     from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
         bn_apply_relu_bwd_cuda,
         bn_apply_relu_cuda,
+    )
+    from zeroshotvideoclassification_tpu_torch.ops.bn_stats import (
+        bn_moments_cuda,
+        bn_moments_grad_cuda,
+        bn_sums_cuda,
+        bn_sums_grad_cuda,
     )
     from zeroshotvideoclassification_tpu_torch.ops.resample_cuda import (
         fused_image_motion_transform_cuda,
@@ -935,6 +1095,9 @@ def kernel_counts():
     return {"video_transform": fused_video_transform_cuda,
             "bn_apply_relu": bn_apply_relu_cuda,
             "bn_apply_relu_bwd": bn_apply_relu_bwd_cuda,
+            "bn_sums": bn_sums_cuda, "bn_sums_grad": bn_sums_grad_cuda,
+            "bn_moments": bn_moments_cuda,
+            "bn_moments_grad": bn_moments_grad_cuda,
             "image_motion_transform": fused_image_motion_transform_cuda,
             "temporal_conv3": temporal_conv3_cuda}
 
@@ -1350,10 +1513,8 @@ def phase_checkpoint(tmp, dev, smi, train_summary):
           f"resumed loss {summary['loss']}")
     check(exp.train_step.state.step == 2 * TRAIN_STEPS
           and read_meta(last)["epoch"] == 1, "the resumed epoch")
-    check(launches == {"video_transform": TRAIN_STEPS + 1,
-                       "bn_apply_relu": 37 * (TRAIN_STEPS + 1),
-                       "bn_apply_relu_bwd": 37 * TRAIN_STEPS,
-                       "image_motion_transform": 0, "temporal_conv3": 0},
+    check(launches == expect(TRAIN_STEPS + 1, 37 * (TRAIN_STEPS + 1),
+                             37 * TRAIN_STEPS),
           f"launches of the resumed epoch: {launches}")
     say(f"[ckpt] resumed epoch 1: {TRAIN_STEPS} steps and the evaluation in "
         f"{wall:.1f} s, mean loss {summary['loss']:.5f}, test accuracy "
@@ -1670,10 +1831,9 @@ def phase_sun(tmp, dev, smi):
         # one K4 launch per step without the antialiasing, none with it; the
         # evaluation is one dispatch of 16 one-clip videos (K1 + 37 K2)
         check(launches == {
-            "video_transform": 1, "bn_apply_relu": 37 * (SUN_STEPS + 1),
-            "bn_apply_relu_bwd": 37 * SUN_STEPS,
-            "image_motion_transform": 0 if aa else SUN_STEPS,
-            "temporal_conv3": 0}, f"SUN launches ({tag}): {launches}")
+            **expect(1, 37 * (SUN_STEPS + 1), 37 * SUN_STEPS),
+            "image_motion_transform": 0 if aa else SUN_STEPS},
+            f"SUN launches ({tag}): {launches}")
         out[tag] = {"launches": launches, "summary": summary,
                     "seconds": wall}
         del exp
@@ -2034,10 +2194,8 @@ def phase_serve(paths, prepare, proto, expected, dev, smi, tag="serve",
         f"dispatches {stats['engine']['batch_buckets']}, device_seconds "
         f"{stats['engine']['device_seconds']}; launches {launches}")
     n = stats["engine"]["dispatches"]
-    check(n > 0 and launches == {
-        "video_transform": n, "bn_apply_relu": epilogues * n,
-        "bn_apply_relu_bwd": 0, "image_motion_transform": 0,
-        "temporal_conv3": 0}, f"launches of {n} dispatches: {launches}")
+    check(n > 0 and launches == expect(n, epilogues * n, 0),
+          f"launches of {n} dispatches: {launches}")
 
     # forward throughput per bucket (model only, input already on the card),
     # on this ladder and on the serve CLI's default one (max_batch 128)
@@ -2060,12 +2218,18 @@ def phase_serve(paths, prepare, proto, expected, dev, smi, tag="serve",
 
 # ----------------------------------------- the P8 paths (phases 11-15) ----
 
-def expect(k1, fwd, bwd):
+def expect(k1, fwd, bwd, sums=None):
     """The kernels' launch counts of a video path: K1, K2 forward and
-    backward, nothing else."""
+    backward, the BN statistics' sums and moments and their gradients,
+    nothing else. Each K2 backward is a train-mode BN's, whose statistics
+    took each op and each gradient once: all default to `bwd`; `sums`
+    counts the train-mode forwards (each one sums and one moments) where
+    some run without a backward."""
+    stats = bwd if sums is None else sums
     return {"video_transform": k1, "bn_apply_relu": fwd,
-            "bn_apply_relu_bwd": bwd, "image_motion_transform": 0,
-            "temporal_conv3": 0}
+            "bn_apply_relu_bwd": bwd, "bn_sums": stats, "bn_sums_grad": bwd,
+            "bn_moments": stats, "bn_moments_grad": bwd,
+            "image_motion_transform": 0, "temporal_conv3": 0}
 
 
 def cli_epoch(args, tag, want):
@@ -2240,9 +2404,10 @@ def phase_train_resnet18(tmp, dev, smi, copy_gbs):
 
 def phase_remat(tmp, dev, smi):
     """--remat full and --remat convs on r2plus1d_18 at 16 clips: through
-    the training CLI (the recomputed blocks launch their 35 epilogues
-    again: 72 K2 forward, 37 K2 backward, 1 K1 a step; the evaluation does
-    not rematerialise); timed bf16 steps and peak memory of each beside the
+    the training CLI (the recomputed blocks launch their 35 epilogues and
+    BN statistics again: 72 K2 forward, 37 K2 backward, 72 sums and
+    moments, 37 of each gradient, 1 K1 a step; the evaluation does not
+    rematerialise); timed bf16 steps and peak memory of each beside the
     plain step, one Experiment at a time; and one float32 step of each on
     the same batch from the same init: loss within rtol 1e-4 of the plain
     step's, the BN running statistics moved once (as far as the plain
@@ -2255,7 +2420,8 @@ def phase_remat(tmp, dev, smi):
         args = cli_argv(tmp, dev, "bfloat16", TRAIN_BS, TRAIN_BS * P8_STEPS,
                         "--remat", remat)
         _, launches[remat], _ = cli_epoch(args, f"train_remat_{remat}", expect(
-            P8_STEPS + 1, 72 * P8_STEPS + 37, 37 * P8_STEPS))
+            P8_STEPS + 1, 72 * P8_STEPS + 37, 37 * P8_STEPS,
+            sums=72 * P8_STEPS))
     timed, f32 = {}, {}
     for remat in ("none",) + REMATS:
         flags = () if remat == "none" else ("--remat", remat)
@@ -2304,7 +2470,8 @@ def phase_remat(tmp, dev, smi):
 
 def phase_fixconvs(tmp, dev):
     """One --fixconvs step (r2plus1d_18, bf16, 16 clips): 37 K2 forward
-    epilogues, no K2 backward, one K1; the backbone's parameters bit-equal
+    epilogues and BN statistics, no K2 backward and no statistics'
+    gradients, one K1; the backbone's parameters bit-equal
     and without gradients, the head's moved, the BN running statistics
     moved. -> launches."""
     import torch
@@ -2328,7 +2495,8 @@ def phase_fixconvs(tmp, dev):
     moved = max(float((after[k] - before[k]).abs().max()) for k in after
                 if "running" in k)
     check(moved > 1e-3, f"--fixconvs: BN running statistics moved {moved}")
-    check(launches == expect(1, 37, 0), f"--fixconvs launches {launches}")
+    check(launches == expect(1, 37, 0, sums=37),
+          f"--fixconvs launches {launches}")
     say(f"[train_fixconvs] one step, loss {loss:.5f}: {len(frozen)} backbone "
         f"parameters bit-equal, {len(params) - len(frozen)} head parameters "
         f"moved, BN running statistics moved by up to {moved:.3g}; "
@@ -2794,8 +2962,12 @@ GRAPH_LR = "5e-4"   # lr 5e-4 over two epochs: epoch 1 at 5e-5 (multistep_lr)
 GRAPH_CLIPS = 8     # float32 clips of the dropout, remat and NCCL checks
                     # (a process's, as DP_LOCAL: BN's late layers span
                     # enough positions for the f32 bars)
-K2_NODES = {"bn_apply_relu": ("bn_apply_relu_kernel",),
-            "bn_apply_relu_bwd": ("bn_bwd_kernel", "bn_bwd_reduce_kernel")}
+GRAPH_NODES = {"bn_apply_relu": ("bn_apply_relu_kernel",),
+               "bn_apply_relu_bwd": ("bn_bwd_kernel", "bn_bwd_reduce_kernel"),
+               "bn_sums": ("bn_sums_kernel", "bn_sums_reduce_kernel"),
+               "bn_sums_grad": ("bn_sums_grad_kernel",),
+               "bn_moments": ("bn_moments_kernel",),
+               "bn_moments_grad": ("bn_moments_grad_kernel",)}
 
 
 def release():
@@ -2811,10 +2983,12 @@ def release():
 
 
 def graph_kernels(graph, path):
-    """K2's kernel nodes in a captured CUDA graph, from its DOT dump
-    (CUDAGraph.debug_dump): {"bn_apply_relu": forward kernels,
-    "bn_apply_relu_bwd": backward kernels (pass 1 and pass 2), "kernels":
-    every kernel node}."""
+    """K2's and the BN statistics' kernel nodes in a captured CUDA graph,
+    from its DOT dump (CUDAGraph.debug_dump): {"bn_apply_relu": forward
+    kernels, "bn_apply_relu_bwd": backward kernels (pass 1 and pass 2),
+    "bn_sums": the sums' kernels (both stages), "bn_sums_grad": their
+    gradient's, "bn_moments", "bn_moments_grad": the moments' and their
+    gradient's, "kernels": every kernel node}."""
     import re
 
     graph.debug_dump(path)
@@ -2823,7 +2997,7 @@ def graph_kernels(graph, path):
         nodes = re.split(r'\n"graph_\d+_node_\d+"\[', f.read())[1:]
     kernels = [c for c in nodes if 'label="{KERNEL' in c]
     out = {name: sum(1 for c in kernels if any(k in c for k in ks))
-           for name, ks in K2_NODES.items()}
+           for name, ks in GRAPH_NODES.items()}
     out["kernels"] = len(kernels)
     return out
 
@@ -3019,6 +3193,14 @@ def graph_timing(tmp, dev, smi):
           f"{74 * GRAPH_K}")
     check(one["bn_apply_relu"] == 37 and one["bn_apply_relu_bwd"] == 74,
           f"K2 kernels in the one-step graph: {one}")
+    check(nodes["bn_sums"] == 74 * GRAPH_K
+          and nodes["bn_sums_grad"] == nodes["bn_moments"]
+          == nodes["bn_moments_grad"] == 37 * GRAPH_K
+          and one["bn_sums"] == 74 and one["bn_sums_grad"] == one[
+              "bn_moments"] == one["bn_moments_grad"] == 37,
+          f"the BN statistics' kernels in one replay: {nodes}, in the "
+          f"one-step graph: {one}; want the sums' two stages and one kernel "
+          f"of each other a BN")
 
     # a group of NaN batches: the guard skips every step on the device
     opt = exp.optimizer
@@ -3180,8 +3362,12 @@ def remat_group(tmp, dev):
           and off <= 1e-3 * float(me.abs().max()),
           f"remat under graphs: {rel}, {off}, {tg}, {te}")
     check(nodes["bn_apply_relu"] == 72 * GRAPH_K
-          and nodes["bn_apply_relu_bwd"] == 74 * GRAPH_K,
-          f"remat graph's K2 kernels {nodes}")
+          and nodes["bn_apply_relu_bwd"] == 74 * GRAPH_K
+          and nodes["bn_sums"] == 144 * GRAPH_K
+          and nodes["bn_moments"] == 72 * GRAPH_K
+          and nodes["bn_sums_grad"] == nodes["bn_moments_grad"]
+          == 37 * GRAPH_K,
+          f"remat graph's K2 and BN statistics kernels {nodes}")
     return {"loss_rel": rel, "running_stats_max_abs": off, "nodes": nodes}
 
 
@@ -4177,6 +4363,9 @@ def main(argv=None):
         k2b, k2_train = phase_k2_bwd(train_calls, dev, copy_gbs)
         lap('6 k2_bwd')
         torch.cuda.empty_cache()
+        bn_stats = phase_bn_stats(train_calls, dev, copy_gbs)
+        lap('6b bn_stats')
+        torch.cuda.empty_cache()
         train_launches, k1_train, train_summary = phase_train(
             tmp, dev, smi, copy_gbs)
         lap('7 train')
@@ -4275,6 +4464,17 @@ def main(argv=None):
             train_launches, k2_train),
         row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
             "train", train_launches, k2b),
+        # the BN statistics' ops and their gradients (no TPU kernel: XLA
+        # computed these statistics in the JAX package): launches in the
+        # train path's run (37 of each a step), measured at the train
+        # cell's 64 clips (phase 6b)
+        {**row("bn_sums", "bn_stats.cu", "", "train", train_launches,
+               bn_stats, clips=bn_stats["clips"],
+               grad_launches=train_launches["bn_sums_grad"],
+               moments_launches=train_launches["bn_moments"],
+               moments_grad_launches=train_launches["bn_moments_grad"],
+               sums_ms=bn_stats["sums_ms"]),
+         "replaces": None},
         row("image_motion_transform", "video_transform.cu",
             "resample_pallas.py:131", "train_sun", sun_launches, k4),
         # the SUN path's other kernels run at the video training path's

@@ -30,6 +30,17 @@ from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import (
     fold_affine,
     fwd_plan,
 )
+from zeroshotvideoclassification_tpu_torch.ops.bn_stats import (
+    bn_moments_cuda,
+    bn_moments_grad_cuda,
+    bn_moments_grad_plain,
+    bn_moments_plain,
+    bn_sums,
+    bn_sums_cuda,
+    bn_sums_grad_cuda,
+    bn_sums_grad_plain,
+    bn_sums_plain,
+)
 from zeroshotvideoclassification_tpu_torch.data.stillimages import (
     CH_OFFSET,
     CH_SCALE,
@@ -55,6 +66,7 @@ from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
 )
 from torch_helpers import (
     bf16_ulps,
+    bn_sums_ref64,
     calibrate_bn,
     copy_bn,
     seed_adam,
@@ -850,6 +862,207 @@ def test_k2_backward_index_past_2_pow_31(cuda):
     for name, g, v in zip(BWD_NAMES[1:5], got[1:5], ref):
         torch.testing.assert_close(g.double(), v, rtol=1e-4,
                                    atol=1e-4 * float(v.abs().max()), msg=name)
+
+
+# ------------------------------------------------ BN statistics' sums ----
+
+# [N, T, H, W, C] of r2plus1d_18's BN epilogues at 16 clips of 16x112x112:
+# its 37 train-mode BNs take these 12 shapes
+SUMS_SHAPES = [(16, 16, 56, 56, 45), (16, 16, 56, 56, 64),
+               (16, 16, 56, 56, 144), (16, 8, 28, 28, 230),
+               (16, 8, 28, 28, 128), (16, 8, 28, 28, 288),
+               (16, 4, 14, 14, 460), (16, 4, 14, 14, 256),
+               (16, 4, 14, 14, 576), (16, 2, 7, 7, 921),
+               (16, 2, 7, 7, 512), (16, 2, 7, 7, 1152)]
+
+
+def _sums_operands(dev, shape, dtype, aligned=True, seed=0):
+    """x with an offset a channel (so that the shift counts), m0 near the
+    offsets, dsums; x a contiguous view one element into a buffer (not
+    16-byte aligned) unless `aligned`."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    c = shape[-1]
+    centre = torch.randn(c, device=dev, generator=g) * 3
+    spread = torch.rand(c, device=dev, generator=g) + 0.3
+    x = torch.randn(shape, device=dev, generator=g).mul_(spread).add_(
+        centre).to(dtype)
+    if not aligned:
+        buf = torch.empty(x.numel() + 8, dtype=dtype, device=dev)
+        view = buf[1:1 + x.numel()].view(shape)
+        view.copy_(x)
+        x = view
+        assert x.data_ptr() % 16 != 0 and x.is_contiguous()
+    m0 = centre + 0.1 * torch.randn(c, device=dev, generator=g)
+    return x, m0, torch.randn(2, c, device=dev, generator=g)
+
+
+def _assert_sums(got, x, m0):
+    """S and Q within 1e-5 of float64 sums (of sum |s| for S); m0 copied
+    bit for bit."""
+    ref = bn_sums_ref64(x, m0)
+    assert got.shape == (3, x.shape[-1]) and got.dtype == torch.float32
+    assert torch.equal(got[2], m0)
+    err = (got[:2].double() - ref[:2]).abs()
+    assert bool((err[0] <= 1e-5 * ref[2]).all()), float(
+        (err[0] / ref[2]).max())
+    assert bool((err[1] <= 1e-5 * ref[1]).all()), float(
+        (err[1] / ref[1]).max())
+
+
+@pytest.mark.parametrize("aligned", [True, False])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("shape", SUMS_SHAPES)
+def test_bn_sums_matches_plain(cuda, shape, dtype, aligned):
+    """The sums against float64 (the plain version's float32 sums take
+    another order) and bit-equal across two runs; the gradient bit for bit
+    the plain version's; one counted launch a call."""
+    x, m0, dsums = _sums_operands(cuda, shape, dtype, aligned)
+    assert bwd_plan(x.numel(), shape[-1], x.element_size(), aligned)[
+        "path"] == ("vector16" if aligned else "scalar")
+    before = (bn_sums_cuda.launches, bn_sums_grad_cuda.launches)
+    got = bn_sums_cuda(x, m0)
+    again = bn_sums_cuda(x, m0)
+    dx = bn_sums_grad_cuda(x, m0, dsums)
+    torch.cuda.synchronize()
+    assert (bn_sums_cuda.launches, bn_sums_grad_cuda.launches) == (
+        before[0] + 2, before[1] + 1)
+    assert torch.equal(got, again)
+    _assert_sums(got, x, m0)
+    _assert_sums(bn_sums_plain(x, m0), x, m0)
+    assert dx.dtype == dtype and dx.shape == x.shape
+    assert torch.equal(dx, bn_sums_grad_plain(x, m0, dsums))
+
+
+@pytest.mark.parametrize("seed", range(8))
+def test_bn_sums_at_random_shapes(cuda, seed):
+    """(rows, C) drawn from a seed, down to one row and one channel, where
+    the folded view is wider than the tensor and its last row ragged."""
+    rng = np.random.default_rng(700 + seed)
+    c = int(rng.choice([1, 2, 3, 8, 45, 64, 100, 230, 513, 921, 1200]))
+    rows = int(rng.choice([1, 2, 7, 63, 500, 4097, 40001]))
+    dtype = (torch.float32, torch.bfloat16)[seed % 2]
+    x, m0, dsums = _sums_operands(cuda, (rows, c), dtype, seed=seed)
+    got = bn_sums_cuda(x, m0)
+    dx = bn_sums_grad_cuda(x, m0, dsums)
+    torch.cuda.synchronize()
+    _assert_sums(got, x, m0)
+    assert torch.equal(dx, bn_sums_grad_plain(x, m0, dsums))
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_bn_sums_gradient_against_autograd_of_the_plain_version(cuda, dtype):
+    """dx through the op against torch.autograd of the plain version (float32
+    rtol 1e-5: autograd orders the square's backward another way; bf16
+    within one ulp of the largest element)."""
+    x, m0, dsums = _sums_operands(cuda, (16, 8, 28, 28, 230), dtype)
+    xa = x.clone().requires_grad_()
+    (dx,) = torch.autograd.grad(bn_sums(xa, m0), xa, dsums)
+    xb = x.clone().requires_grad_()
+    (want,) = torch.autograd.grad(bn_sums_plain(xb, m0)[:2], xb, dsums)
+    assert dx.dtype == dtype
+    top = float(want.float().abs().max())
+    if dtype == torch.float32:
+        torch.testing.assert_close(dx, want, rtol=1e-5, atol=1e-5 * top)
+    else:
+        assert float((dx.float() - want.float()).abs().max()) <= 2 ** -7 * top
+
+
+def test_bn_sums_refusals_and_an_empty_x(cuda):
+    x, m0, dsums = _sums_operands(cuda, (2, 3, 4, 45), torch.bfloat16)
+    with pytest.raises(ValueError, match="contiguous"):
+        bn_sums_cuda(x.transpose(1, 2), m0)
+    with pytest.raises(ValueError, match="m0 is on"):
+        bn_sums_cuda(x, m0.cpu())
+    with pytest.raises(ValueError, match="dsums must be"):
+        bn_sums_grad_cuda(x, m0, dsums.double())
+    before = bn_sums_cuda.launches
+    empty = bn_sums_cuda(x[:0], m0)
+    assert bn_sums_cuda.launches == before
+    assert torch.equal(empty, torch.stack([torch.zeros_like(m0),
+                                           torch.zeros_like(m0), m0]))
+
+
+@pytest.mark.parametrize("c", sorted({shape[-1] for shape in SUMS_SHAPES}))
+def test_bn_moments_match_plain(cuda, c):
+    """The moments and their gradient bit for bit the plain versions' (the
+    same float32 operations in the same order, the count read from the
+    device as the plain version divides by the count tensor), a NaN channel
+    and one with d < 0 among them; the count a slice of a larger buffer,
+    as the data group's all-reduce leaves it."""
+    g = torch.Generator(device=cuda).manual_seed(c)
+    rows = 16.0 * 56 * 56
+    s = torch.randn(2, c, device=cuda, generator=g)
+    buf = torch.cat([torch.stack([s[0] * 40, s[1].abs() * rows
+                                  + 1600 * s[0] ** 2 / rows]).flatten(),
+                     torch.full((1,), rows, device=cuda)])
+    sums, n = buf[:2 * c].view(2, c), buf[2 * c:]
+    sums[:, 0] = float("nan")
+    sums[1, -1] = 0.0  # d < 0
+    m0, rv = torch.randn(c, device=cuda, generator=g), torch.rand(
+        c, device=cuda, generator=g) + 0.5
+    dmean, dvar = torch.randn(2, c, device=cuda, generator=g)
+    before = (bn_moments_cuda.launches, bn_moments_grad_cuda.launches)
+    got = bn_moments_cuda(sums, n, m0, rv, 0.1)
+    dsums = bn_moments_grad_cuda(dmean, dvar, got[4:], n)
+    torch.cuda.synchronize()
+    assert (bn_moments_cuda.launches, bn_moments_grad_cuda.launches) == (
+        before[0] + 1, before[1] + 1)
+    want = bn_moments_plain(sums, n, m0, rv, 0.1)
+    torch.testing.assert_close(got, want, rtol=0, atol=0, equal_nan=True)
+    torch.testing.assert_close(dsums, bn_moments_grad_plain(
+        dmean, dvar, want[4:], n), rtol=0, atol=0, equal_nan=True)
+    assert float(got[1, -1]) == 0.0 and float(dsums[1, -1]) == 0.0
+
+
+def test_bn_sums_index_past_2_pow_31(cuda):
+    """Sums and gradient of more than 2^31 elements take the 64-bit index
+    path; the gradient held to the plain version chunk by chunk."""
+    c = 144
+    rows = 2 ** 31 // c + 1000
+    x, m0, dsums = _sums_operands(cuda, (rows, c), torch.bfloat16)
+    got = bn_sums_cuda(x, m0)
+    dx = bn_sums_grad_cuda(x, m0, dsums)
+    torch.cuda.synchronize()
+    _assert_sums(got, x, m0)
+    chunk = 2 ** 20
+    for s in range(0, rows, chunk):
+        assert torch.equal(dx[s:s + chunk],
+                           bn_sums_grad_plain(x[s:s + chunk], m0, dsums)), s
+
+
+def test_train_step_at_64_clips_takes_the_sums_kernels(cuda):
+    """One bf16 train step of r2plus1d_18 + mlp at the train cell's 64 clips
+    of 16x112x112: each of its 37 train-mode BNs launches the sums, the
+    moments and their gradients once, beside K2's 37 + 37."""
+    from zeroshotvideoclassification_tpu_torch.config import Config
+    from zeroshotvideoclassification_tpu_torch.models import get_network
+    from zeroshotvideoclassification_tpu_torch.train import (
+        make_optimizer,
+        make_train_step,
+    )
+
+    m = get_network(Config(network="r2plus1d_18", head="mlp",
+                           compute_dtype="bfloat16")).to(cuda).to(
+        memory_format=torch.channels_last_3d)
+    step = make_train_step(m, make_optimizer(m.parameters(), 1e-4),
+                           compute_dtype=torch.bfloat16)
+    g = torch.Generator(device=cuda).manual_seed(0)
+    x = torch.randn(64, 1, 16, 112, 112, 3, device=cuda, generator=g).to(
+        torch.bfloat16)
+    z = torch.randn(64, 300, device=cuda, generator=g)
+    counters = (bn_sums_cuda, bn_sums_grad_cuda, bn_moments_cuda,
+                bn_moments_grad_cuda, bn_apply_relu_cuda,
+                bn_apply_relu_bwd_cuda)
+    before = [f.launches for f in counters]
+    loss = float(step(x, z, torch.zeros(64, dtype=torch.int32, device=cuda),
+                      torch.ones(64, device=cuda),
+                      torch.randn(8, 300, device=cuda, generator=g))["loss"])
+    torch.cuda.synchronize()
+    assert [f.launches - b for f, b in zip(counters, before)] == [37] * 6
+    assert np.isfinite(loss)
+    del m, step, x
+    gc.collect()
+    torch.cuda.empty_cache()
 
 
 def test_train_step_on_the_card_matches_the_cpu(cuda):

@@ -181,17 +181,22 @@ def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in _build.sources()}
     # K1 and K4 are one kernel template in video_transform.cu
     assert names == {"video_transform.cu", "bn_apply_relu.cu",
-                     "temporal_conv.cu"}
+                     "temporal_conv.cu", "bn_stats.cu"}
+    # the BN kernels' shared header is part of the build's hash
+    assert {p.name for p in _build.headers()} == {"bn_common.cuh"}
     # every C entry point the wrappers call is declared with its argtypes
-    text = "".join(p.read_text() for p in _build.sources())
+    text = "".join(p.read_text() for p in _build.sources() + _build.headers())
     for fn in _build.SIGNATURES:
         assert f'extern "C" int {fn}(' in text, fn
     assert {"zsvc_bn_bwd_f32", "zsvc_bn_bwd_bf16", "zsvc_bn_apply_relu_f32",
             "zsvc_bn_apply_relu_bf16", "zsvc_video_transform_f32",
             "zsvc_video_transform_bf16", "zsvc_image_motion_transform_f32",
             "zsvc_image_motion_transform_bf16", "zsvc_temporal_conv3_f32",
-            "zsvc_temporal_conv3_bf16"} == set(_build.SIGNATURES)
-    # the backward's sums are deterministic: no float atomics in any kernel
+            "zsvc_temporal_conv3_bf16", "zsvc_bn_sums_f32",
+            "zsvc_bn_sums_bf16", "zsvc_bn_sums_grad_f32",
+            "zsvc_bn_sums_grad_bf16", "zsvc_bn_moments",
+            "zsvc_bn_moments_grad"} == set(_build.SIGNATURES)
+    # the sums are deterministic: no float atomics in any kernel
     assert "atomicAdd" not in text
 
 

@@ -1,7 +1,7 @@
 """The launch plans of the port's redesigned kernels, which are plain
 Python and so testable without a GPU: K2's cuts of a [n / C, C] tensor
-(ops/bn_cuda.fwd_plan, bwd_plan) as properties over every epilogue shape of
-r2plus1d_18 and over random (n, C), numpy walks of the kernels' index and
+(ops/bn_cuda.fwd_plan, bwd_plan, which the BN statistics' sums take too) as
+properties over every epilogue shape of r2plus1d_18 and over random (n, C), numpy walks of the kernels' index and
 summation schemes under those plans against the plain versions, K1's and
 K4's bands and staging (ops/resample_cuda.transform_plan, one plan for the
 one kernel template) walked in numpy over the pipeline's canvases and the
@@ -43,6 +43,9 @@ EPILOGUES = [(16, 16, 56, 56, 45), (16, 16, 56, 56, 64),
              (16, 2, 7, 7, 1152)]
 # the same at 32 clips (the serving forward at bucket 8 x 4 clips)
 EPILOGUES_32 = [(32, *shape[1:]) for shape in EPILOGUES]
+# and at 64 clips (the train cell's step), where the BN statistics' sums
+# (ops/bn_stats.py) take bwd_plan and their gradient fwd_plan
+EPILOGUES_64 = [(64, *shape[1:]) for shape in EPILOGUES]
 
 
 def _assert_bwd_plan(n, c, itemsize, aligned):
@@ -68,7 +71,7 @@ def _assert_bwd_plan(n, c, itemsize, aligned):
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("shape", EPILOGUES)
+@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_64)
 def test_bwd_plan_at_every_epilogue_of_the_model(shape, itemsize):
     n, c = int(np.prod(shape)), shape[-1]
     plan = _assert_bwd_plan(n, c, itemsize, True)
@@ -128,9 +131,10 @@ def _walk_sums(g, c, plan):
 def test_bwd_summation_scheme_counts_every_element_once(rows, c, itemsize,
                                                         aligned):
     """Walking the kernels' scheme (folded rows, a thread's `vec` columns,
-    the in-block fold by channel, the strided second pass) in numpy gives
-    each channel's plain sum: no element is dropped or counted twice, the
-    ragged last folded row included."""
+    the in-block fold by channel, the strided second pass; K2 backward's
+    and the BN statistics' sums', csrc/bn_common.cuh) in numpy gives each
+    channel's plain sum: no element is dropped or counted twice, the ragged
+    last folded row included."""
     g = np.random.default_rng(rows + c).normal(size=rows * c)
     plan = bwd_plan(rows * c, c, itemsize, aligned)
     got = _walk_sums(g, c, plan)
@@ -160,7 +164,7 @@ def _assert_fwd_plan(n, c, itemsize, aligned):
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_32)
+@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_32 + EPILOGUES_64)
 def test_fwd_plan_at_every_epilogue_of_the_model(shape, itemsize, aligned):
     n, c = int(np.prod(shape)), shape[-1]
     plan = _assert_fwd_plan(n, c, itemsize, aligned)

@@ -461,16 +461,37 @@ def test_the_trainers_profile_dir_holds_the_steps_spans(tmp_path):
     assert spans["train.step"]["first_s"] > 0
 
 
+def test_bracket_tool_links_the_statistics_ops():
+    """tools/check_bn_brackets.py on the CPU (a tiny r2plus1d_18 step)
+    links each BN's forward ops in its range to their backward nodes: the
+    two ops of ops/bn_stats.py, each with its own node, and nothing
+    else."""
+    spec = importlib.util.spec_from_file_location(
+        "check_bn_brackets", os.path.join(ROOT, "tools",
+                                          "check_bn_brackets.py"))
+    tool = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(tool)
+    with torch.enable_grad():
+        out = tool.measure(clips=2, steps=1, clip_len=4, size=32,
+                           device="cpu")
+    assert out["sums_ops"] == out["sums_nodes"] == 37
+    assert out["forward_ops"] == out["backward_nodes"] == 2 * 37
+    assert out["instances"] == {"bn.stats": 37, "bn.stats.backward": 37}
+    assert out["sums_launches"] == out["sums_grad_launches"] == 0
+
+
 # ------------------------------------------------------------- card ----
 
 @pytest.mark.cuda
-def test_bn_brackets_agree_with_the_kernels_of_the_trace():
+@pytest.mark.parametrize("clips", [64, 128])
+def test_bn_brackets_agree_with_the_kernels_of_the_trace(clips):
     """The brackets' device ms a step within 10% of the kernels that
     bn_statistics' ops launch, forward and backward (linked by correlation
-    id and sequence number), at the train cell's 64 clips. (At 16 clips
-    the host's launches under the profiler fall behind the device, and
-    the brackets take in the gaps between the kernels: 1.57x on an
-    H100.)"""
+    id and sequence number), at the train cell's 64 clips and at twice
+    that. (Where the host's launches under the profiler fall behind the
+    device, the brackets take in the gaps between the kernels: 1.57x at 16
+    clips on an H100 before the BN statistics became hand-written ops,
+    1.6-2.0x at 64 clips since; 1.03x at 128.)"""
     if not torch.cuda.is_available():
         pytest.skip("needs a CUDA GPU (run on the card)")
     spec = importlib.util.spec_from_file_location(
@@ -479,7 +500,9 @@ def test_bn_brackets_agree_with_the_kernels_of_the_trace():
     tool = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(tool)
     with torch.enable_grad():
-        out = tool.measure(clips=64, steps=2)
+        out = tool.measure(clips=clips, steps=2)
     assert out["forward_ops"] > 0 and out["backward_nodes"] > 0
+    assert out["sums_ops"] == out["sums_nodes"] == 37
+    assert out["sums_launches"] == out["sums_grad_launches"] == 37
     assert out["bracket_fwd_ms"] > 0 and out["bracket_bwd_ms"] > 0
     assert abs(out["ratio"] - 1) < 0.1, out

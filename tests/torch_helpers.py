@@ -1,8 +1,8 @@
 """Helpers shared by the PyTorch port's tests and chip_smoke.py: seeded
 synthetic clips, random BN statistics for JAX trees, a bf16 ulp distance,
-seeded BatchNorm statistics, seeded C3D weights that carry the input, a
-seeded Adam state, and the removal of a test's large files.
-Imports numpy and torch only."""
+float64 sums of the BN statistics, seeded BatchNorm statistics, seeded C3D
+weights that carry the input, a seeded Adam state, and the removal of a
+test's large files. Imports numpy and torch only."""
 
 from __future__ import annotations
 
@@ -58,6 +58,20 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     mag = torch.clamp_min(want.abs(), 2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return float(((got - want).abs() / ulp).max()) if want.numel() else 0.0
+
+
+def bn_sums_ref64(x: torch.Tensor, m0: torch.Tensor,
+                  chunk: int = 2 ** 20) -> torch.Tensor:
+    """float64 [3, C]: the sums of s = x - m0, of s^2 and of |s| over every
+    row of a [..., C] tensor, taken over chunks of rows (the BN statistics'
+    sums held to float64, ops/bn_stats.py)."""
+    c = x.shape[-1]
+    flat = x.reshape(-1, c)
+    ref = torch.zeros(3, c, dtype=torch.float64, device=x.device)
+    for i in range(0, flat.shape[0], chunk):
+        d = flat[i:i + chunk].double() - m0.double()
+        ref += torch.stack([d.sum(0), (d * d).sum(0), d.abs().sum(0)])
+    return ref
 
 
 @torch.no_grad()

@@ -14,12 +14,18 @@ and sets beside each other, per step:
   * the device time of the kernels that bn_statistics' own ops launch: the
     forward's, linked by correlation id to the ops inside the trace's
     `zsv.bn.stats` ranges, and the backward's, linked to those forward ops
-    by sequence number (autograd's `evaluate_function` events).
+    by sequence number (autograd's `evaluate_function` events). The ops of
+    ops/bn_stats.py are among them: the Functions' forward ops `_BNSums`
+    and `_BNMoments` inside the range, their backward nodes
+    `_BNSumsBackward` and `_BNMomentsBackward`;
+  * the sums' own kernels (names with `bn_sums`: the forward's two stages,
+    the gradient's kernel) and their launch counters.
 
 Prints one JSON line (and writes it to --json): both sums a step, their
-ratios, the kernel counts and the card's name. The brackets hold where
-each ratio is within 10% of 1. On the CPU (--device cpu, tiny sizes) it
-rehearses the linking; there are no brackets and no kernels.
+ratios, the kernel counts, the sums' ops, nodes, kernel ms and launches a
+step, and the card's name. The brackets hold where each ratio is within
+10% of 1. On the CPU (--device cpu, tiny sizes) it rehearses the linking;
+there are no brackets and no kernels.
 """
 
 from __future__ import annotations
@@ -51,22 +57,37 @@ def _below(event):
 
 def link(events):
     """-> (forward us, backward us, forward ops, backward nodes) of the
-    bn_statistics kernels among torch.profiler FunctionEvents."""
+    bn_statistics kernels among torch.profiler FunctionEvents; the ops
+    (those with a sequence number, which several may share) and the nodes
+    as lists of events."""
     from torch.autograd import DeviceType
 
     ranges = [e for e in events if e.name == "zsv.bn.stats"
               and e.device_type == DeviceType.CPU]
-    fwd_us, seqs = 0.0, set()
+    fwd_us, ops = 0.0, []
     for r in ranges:
         fwd_us += _kernel_us(r)
-        for op in _below(r):
-            if op is not r and op.sequence_nr >= 0:
-                seqs.add((op.thread, op.sequence_nr))
+        ops += [op for op in _below(r)
+                if op is not r and op.sequence_nr >= 0]
+    seqs = {(op.thread, op.sequence_nr) for op in ops}
     nodes = [e for e in events
              if e.name.startswith("autograd::engine::evaluate_function")
              and (e.fwd_thread, e.sequence_nr) in seqs]
     bwd_us = sum(_kernel_us(e) for e in nodes)
-    return fwd_us, bwd_us, len(seqs), len(nodes)
+    return fwd_us, bwd_us, ops, nodes
+
+
+def sums_kernel_us(events):
+    """-> (forward us, backward us) of the kernels named `bn_sums` among
+    the FunctionEvents' kernels: the sums' two stages, their gradient."""
+    fwd = bwd = 0.0
+    for e in events:
+        for k in e.kernels:
+            if "bn_sums_grad" in k.name:
+                bwd += k.duration
+            elif "bn_sums" in k.name:
+                fwd += k.duration
+    return fwd, bwd
 
 
 def measure(clips: int, steps: int, clip_len: int = 16, size: int = 112,
@@ -76,6 +97,10 @@ def measure(clips: int, steps: int, clip_len: int = 16, size: int = 112,
 
     from zeroshotvideoclassification_tpu_torch.config import Config
     from zeroshotvideoclassification_tpu_torch.models import get_network
+    from zeroshotvideoclassification_tpu_torch.ops.bn_stats import (
+        bn_sums_cuda,
+        bn_sums_grad_cuda,
+    )
     from zeroshotvideoclassification_tpu_torch.train import (
         make_optimizer,
         make_train_step,
@@ -109,25 +134,38 @@ def measure(clips: int, steps: int, clip_len: int = 16, size: int = 112,
     profiler.reset()
     activities = [ProfilerActivity.CPU] + (
         [ProfilerActivity.CUDA] if cuda else [])
+    before = (bn_sums_cuda.launches, bn_sums_grad_cuda.launches)
     with profile(activities=activities) as prof:
         for _ in range(steps):
             step(x, z, label, weight, embed)
         if cuda:
             torch.cuda.synchronize(dev)
+    launches = [(b - a) / steps for a, b in zip(
+        before, (bn_sums_cuda.launches, bn_sums_grad_cuda.launches))]
     reg = profiler.registry()
     brackets = {}
     for name in ("bn.stats", "bn.stats.backward"):
         ms = [i.device_ms for i in reg.instances(name)]
         brackets[name] = (sum(ms) / steps if ms and None not in ms
                           else None)
-    fwd_us, bwd_us, n_ops, n_nodes = link(prof.events())
+    events = prof.events()
+    fwd_us, bwd_us, ops, nodes = link(events)
+    sums_fwd_us, sums_bwd_us = sums_kernel_us(events)
     out = {"device": (torch.cuda.get_device_name(dev) if cuda else "cpu"),
            "clips": clips, "steps": steps,
            "bracket_fwd_ms": brackets["bn.stats"],
            "bracket_bwd_ms": brackets["bn.stats.backward"],
            "kernels_fwd_ms": fwd_us / 1e3 / steps,
            "kernels_bwd_ms": bwd_us / 1e3 / steps,
-           "forward_ops": n_ops // steps, "backward_nodes": n_nodes // steps,
+           "forward_ops": len({(o.thread, o.sequence_nr)
+                               for o in ops}) // steps,
+           "backward_nodes": len(nodes) // steps,
+           "sums_ops": sum(o.name == "_BNSums" for o in ops) // steps,
+           "sums_nodes": sum(n.name.endswith(": _BNSumsBackward")
+                             for n in nodes) // steps,
+           "sums_kernels_fwd_ms": sums_fwd_us / 1e3 / steps,
+           "sums_kernels_bwd_ms": sums_bwd_us / 1e3 / steps,
+           "sums_launches": launches[0], "sums_grad_launches": launches[1],
            "instances": {k: len(reg.instances(k)) for k in brackets}}
     for part in ("fwd", "bwd"):
         b, k = out[f"bracket_{part}_ms"], out[f"kernels_{part}_ms"]

@@ -14,10 +14,11 @@ descriptors) is fetched through cudaGetDriverEntryPoint.
        -o libzsvc_torch_kernels.so *.o
 
 The library lands in build/torch_kernels/<hash>/ at the root of the
-checkout, keyed by a hash of the sources and the command, so an edited
-kernel is rebuilt and an unchanged one is loaded as it is. A file lock
-serialises concurrent builds. Nothing here runs at import: the first
-kernel launch calls library().
+checkout, keyed by a hash of the sources, the headers they share
+(csrc/*.cuh) and the command, so an edited kernel is rebuilt and an
+unchanged one is loaded as it is. A file lock serialises concurrent
+builds. Nothing here runs at import: the first kernel launch calls
+library().
 
 Wrappers pass every pointer and the CUDA stream as a Python int
 (ctypes.c_void_p); each entry point returns cudaGetLastError(), which
@@ -62,6 +63,12 @@ SIGNATURES = {
     "zsvc_bn_apply_relu_bf16": [_P] * 6 + [_F, _P, _LL] + [_I] * 8 + [_P],
     "zsvc_bn_bwd_f32": [_P] * 6 + [_F] + [_P] * 4 + [_LL] + [_I] * 9 + [_P],
     "zsvc_bn_bwd_bf16": [_P] * 6 + [_F] + [_P] * 4 + [_LL] + [_I] * 9 + [_P],
+    "zsvc_bn_sums_f32": [_P] * 4 + [_LL] + [_I] * 7 + [_P],
+    "zsvc_bn_sums_bf16": [_P] * 4 + [_LL] + [_I] * 7 + [_P],
+    "zsvc_bn_sums_grad_f32": [_P] * 4 + [_LL] + [_I] * 7 + [_P],
+    "zsvc_bn_sums_grad_bf16": [_P] * 4 + [_LL] + [_I] * 7 + [_P],
+    "zsvc_bn_moments": [_P] * 4 + [_F] * 2 + [_P, _I, _P],
+    "zsvc_bn_moments_grad": [_P] * 5 + [_I, _P],
 }
 
 _lock = threading.Lock()
@@ -81,6 +88,10 @@ class BuildResult:
 
 def sources():
     return sorted(CSRC.glob("*.cu"))
+
+
+def headers():
+    return sorted(CSRC.glob("*.cuh"))
 
 
 def nvcc_path() -> str:
@@ -110,7 +121,7 @@ def build() -> BuildResult:
     srcs = sources()
     if not srcs:
         raise RuntimeError(f"no CUDA sources under {CSRC}")
-    out_dir = BUILD_ROOT / _key(srcs)
+    out_dir = BUILD_ROOT / _key(srcs + headers())
     lib = out_dir / LIB_NAME
     out_dir.mkdir(parents=True, exist_ok=True)
     with open(BUILD_ROOT / ".lock", "w") as lock:

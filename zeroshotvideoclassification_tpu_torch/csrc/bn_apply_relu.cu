@@ -66,80 +66,11 @@
 // for bit. No FMA contraction and no fast-math: rsqrtf and the separate
 // roundings give the plain version's float32 values.
 
-#include <cstdint>
-#include <initializer_list>
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
+#include "bn_common.cuh"  // packs, plan_ok and the two stages of the sums
 
 namespace {
 
-__device__ __forceinline__ float load(const float* p) { return *p; }
-
-__device__ __forceinline__ float load(const __nv_bfloat16* p) {
-  return __bfloat162float(*p);
-}
-
-__device__ __forceinline__ void store(float* p, float v) { *p = v; }
-
-__device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16_rn(v);
-}
-
-template <typename T, int kVec>
-struct Pack;  // kVec consecutive elements as one access
-template <>
-struct Pack<float, 4> { typedef float4 type; };
-template <>
-struct Pack<__nv_bfloat16, 8> { typedef uint4 type; };
-template <>
-struct Pack<float, 1> { typedef float type; };
-template <>
-struct Pack<__nv_bfloat16, 1> { typedef __nv_bfloat16 type; };
-
-template <typename T, int kVec>
-__device__ __forceinline__ void load_pack(const T* p, float (&v)[kVec]) {
-  const typename Pack<T, kVec>::type raw =
-      *reinterpret_cast<const typename Pack<T, kVec>::type*>(p);
-  const T* e = reinterpret_cast<const T*>(&raw);
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) v[k] = load(e + k);
-}
-
-template <typename T, int kVec>
-__device__ __forceinline__ void store_pack(T* p, const float (&v)[kVec]) {
-  typename Pack<T, kVec>::type raw;
-  T* e = reinterpret_cast<T*>(&raw);
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) store(e + k, v[k]);
-  *reinterpret_cast<typename Pack<T, kVec>::type*>(p) = raw;
-}
-
-constexpr int kMaxThreads = 512;  // threads per block, at most (both plans)
-constexpr int kUnroll = 2;         // rows in flight per thread (both kernels)
-
-// The plan (ops/bn_cuda.fwd_plan or bwd_plan) against this source and the
-// pointers: Wf a multiple of C and of vec, vec 1 or the 16-byte width (then
-// every pointer 16-byte aligned), col_tiles blocks of `threads` threads
-// cover Wf / vec columns, chunks * rows_per_chunk cover ceil(n / Wf) rows.
-template <typename T>
-bool plan_ok(long long n, int C, int Wf, int vec, int threads, int col_tiles,
-             int chunks, int rows_per_chunk,
-             std::initializer_list<const void*> ptrs) {
-  constexpr int kFull = 16 / static_cast<int>(sizeof(T));
-  const long long rows = (n + Wf - 1) / Wf;
-  bool ok = C >= 1 && Wf >= C && (vec == 1 || vec == kFull) && Wf % C == 0 &&
-            Wf % vec == 0 && threads >= 32 && threads <= kMaxThreads &&
-            threads % 32 == 0 &&
-            static_cast<long long>(col_tiles) * threads * vec >= Wf &&
-            static_cast<long long>(col_tiles - 1) * threads * vec < Wf &&
-            chunks >= 1 && chunks <= 65535 && rows_per_chunk >= 1 &&
-            static_cast<long long>(chunks) * rows_per_chunk >= rows;
-  if (vec != 1) {
-    for (const void* p : ptrs)
-      ok = ok && reinterpret_cast<uintptr_t>(p) % 16 == 0;
-  }
-  return ok;
-}
+constexpr int kUnroll = 2;  // rows in flight per thread (both kernels)
 
 // --------------------------------------------------------------- forward ---
 
@@ -281,9 +212,6 @@ int launch(const void* x, const void* r, const void* scale, const void* bias,
 
 // ---------------------------------------------------------------- backward ---
 
-constexpr int kRedLanes = 32;  // pass 2: channels per block ...
-constexpr int kRedRows = 32;   // ... times strides over the partials
-
 // one element: g, dx, the two sums (the order of the plain version)
 template <bool kRelu>
 __device__ __forceinline__ float bwd_element(float xv, float yv, float dyv,
@@ -367,25 +295,7 @@ __global__ void __launch_bounds__(kMaxThreads) bn_bwd_kernel(
       }
     }
   }
-#pragma unroll
-  for (int k = 0; k < kVec; ++k) {
-    sh[threadIdx.x * kVec + k] = s1[k];
-    sh[width + threadIdx.x * kVec + k] = s2[k];
-  }
-  __syncthreads();
-  // one partial per channel: the block's columns of that channel, in order
-  const int j_hi = min(j_lo + width, Wf);
-  const size_t blocks = static_cast<size_t>(gridDim.x) * gridDim.y;
-  const size_t block = static_cast<size_t>(blockIdx.y) * gridDim.x + blockIdx.x;
-  for (int c = threadIdx.x; c < C; c += blockDim.x) {
-    float t1 = 0.0f, t2 = 0.0f;
-    for (int q = j_lo + (c - j_lo % C + C) % C; q < j_hi; q += C) {
-      t1 = __fadd_rn(t1, sh[q - j_lo]);
-      t2 = __fadd_rn(t2, sh[width + q - j_lo]);
-    }
-    partial[block * C + c] = t1;
-    partial[(blocks + block) * C + c] = t2;
-  }
+  write_block_partials<kVec>(sh, s1, s2, C, Wf, partial);
 }
 
 // S[which][c] = sum over blocks of partial[which][block][c], then the four
@@ -396,30 +306,8 @@ __global__ void bn_bwd_reduce_kernel(const float* __restrict__ partial,
                                      float* __restrict__ out, int C,
                                      int blocks) {
   __shared__ float sh[2][kRedRows][kRedLanes + 1];
+  sum_block_partials(partial, C, blocks, sh);
   const int c = blockIdx.x * kRedLanes + threadIdx.x;
-  float acc[2] = {0.0f, 0.0f};
-  if (c < C) {
-#pragma unroll
-    for (int which = 0; which < 2; ++which) {
-      const float* p = partial + static_cast<size_t>(which) * blocks * C + c;
-#pragma unroll 4
-      for (int k = threadIdx.y; k < blocks; k += kRedRows)
-        acc[which] = __fadd_rn(acc[which], p[static_cast<size_t>(k) * C]);
-    }
-  }
-  sh[0][threadIdx.y][threadIdx.x] = acc[0];
-  sh[1][threadIdx.y][threadIdx.x] = acc[1];
-  __syncthreads();
-  for (int half = kRedRows / 2; half > 0; half /= 2) {
-    if (threadIdx.y < half) {
-#pragma unroll
-      for (int which = 0; which < 2; ++which)
-        sh[which][threadIdx.y][threadIdx.x] =
-            __fadd_rn(sh[which][threadIdx.y][threadIdx.x],
-                      sh[which][threadIdx.y + half][threadIdx.x]);
-    }
-    __syncthreads();
-  }
   if (threadIdx.y == 0 && c < C) {
     const float s1 = sh[0][0][threadIdx.x], s2 = sh[1][0][threadIdx.x];
     const float sinv = rsqrtf(__fadd_rn(var[c], eps));

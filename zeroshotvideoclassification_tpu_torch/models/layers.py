@@ -16,9 +16,10 @@ contiguous [N, T, H, W, C] view.
     every epilogue, like layers.py:248-287. In train mode the statistics
     are bn_statistics (layers.py:199-225: one pass, shifted by the running
     mean, in float32, through autograd, over the global batch of all
-    data shards) and the running statistics move; in
-    eval mode they are the running statistics. Either way the apply is K2
-    (ops/bn_cuda.bn_apply_relu) with mean and var as differentiable inputs.
+    data shards; the ops of ops/bn_stats.py) and the running statistics
+    move; in eval mode they are the running statistics. Either way the
+    apply is K2 (ops/bn_cuda.bn_apply_relu) with mean and var as
+    differentiable inputs.
     Inside `recomputing()` (a rematerialised block's second forward,
     models/resnet3d.py) train mode normalises as before but leaves the
     running statistics alone: they move once a step, as the JAX package's
@@ -41,6 +42,10 @@ import torch.nn.functional as F
 from torch import nn
 
 from zeroshotvideoclassification_tpu_torch.ops.bn_cuda import bn_apply_relu
+from zeroshotvideoclassification_tpu_torch.ops.bn_stats import (
+    bn_moments,
+    bn_sums,
+)
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     all_reduce_sum,
     grid,
@@ -98,17 +103,18 @@ def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
     are what the running statistics become ((1 - momentum) * old + momentum
     * new, with the UNBIASED variance count / (count - 1)), detached.
 
+    Two ops of ops/bn_stats.py, in one form with or without a group: the
+    sums [sum s, sum s^2] (bn_sums; on CUDA one read of x, and one pass for
+    their gradient), then everything else from the sums and a count tensor
+    n (bn_moments; on CUDA one launch each way, n read on the device).
     Under a process group the expectations are over the GLOBAL batch, as
     the JAX package's over its sharded batch: one float32 tensor [sum s,
-    sum s^2, count] a layer is summed over the data group, one process a
-    data shard (parallel.multihost.all_reduce_sum, differentiable, so the
-    backward sums each process's gradient of the sums; the members of a
-    model group see the same rows and are not summed twice), and the
-    statistics and the unbiased factor come from the global sums and
-    count. Without a group
-    they are the plain means of this batch: packing, slicing and dividing
-    by a count tensor add autograd nodes and launches that a host-paced
-    step feels.
+    sum s^2, n] a layer is summed over the data group between the two, one
+    process a data shard (parallel.multihost.all_reduce_sum,
+    differentiable, so the backward sums each process's gradient of the
+    sums; the members of a model group see the same rows and are not
+    summed twice), and the statistics and the unbiased factor come from
+    the global sums and count.
 
     The forward runs in the span `bn.stats`; while a profiler records, its
     backward, from the first gradient to reach mean or var to the gradient
@@ -122,10 +128,9 @@ def bn_statistics(x: torch.Tensor, running_mean: torch.Tensor,
 
 
 def _statistics(x, running_mean, running_var, momentum):
-    dims = tuple(range(x.dim() - 1))
     count = float(math.prod(x.shape[:-1]))
-    m0 = running_mean.detach()
-    s = x - m0  # float32 by promotion: no float copy of x on its own
+    sums = bn_sums(x, running_mean)
+    n = sums.new_full((1,), count)
     if group_active():
         g = grid()
         total = count * g.n_data
@@ -134,23 +139,10 @@ def _statistics(x, running_mean, running_var, momentum):
                              f"positions: the global count is not exact in "
                              f"float32")
         c = x.shape[-1]
-        sums = all_reduce_sum(torch.cat([
-            s.sum(dims), torch.square(s).sum(dims), s.new_full((1,), count)]),
-            g.data_group)
-        s_sum, sq_sum, n = sums.split((c, c, 1))
-        n = n.detach()
-        s_mean, s_sq = s_sum / n, sq_sum / n
-        factor = n / torch.clamp_min(n - 1.0, 1.0)
-    else:
-        s_mean = s.mean(dims)
-        s_sq = torch.square(s).mean(dims)
-        factor = count / max(count - 1.0, 1.0)
-    mean = s_mean + m0
-    var = torch.clamp_min(s_sq - s_mean * s_mean, 0.0)
-    unbiased = var.detach() * factor
-    new_mean = (1 - momentum) * m0 + momentum * mean.detach()
-    new_var = (1 - momentum) * running_var.detach() + momentum * unbiased
-    return mean, var, new_mean, new_var
+        sums, n = all_reduce_sum(torch.cat([sums.flatten(), n]),
+                                 g.data_group).split((2 * c, 1))
+        sums, n = sums.view(2, c), n.detach()
+    return bn_moments(sums, n, running_mean, running_var, momentum)
 
 
 def batchnorm_relu(x: torch.Tensor, weight, bias, running_mean, running_var,

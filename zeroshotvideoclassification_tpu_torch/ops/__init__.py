@@ -10,6 +10,11 @@ version, and the cosine distances.
   bn_cuda.py        K2, the BN epilogue as a torch.autograd.Function: forward
                     and backward wrappers (csrc/bn_apply_relu.cu) and their
                     plain versions
+  bn_stats.py       the train-mode BN statistics as two
+                    torch.autograd.Functions, the sums of x - m0 and of its
+                    square, and the moments from them: wrappers
+                    (csrc/bn_stats.cu; no TPU kernel, XLA computed these in
+                    the JAX package) and their plain versions
   temporal_conv.py  K3, the (3,1,1) temporal conv as a
                     torch.autograd.Function: forward wrapper
                     (csrc/temporal_conv.cu), its plain version, the tile plan
