@@ -77,7 +77,7 @@ def control_train(ctx, rank=0, world=1):
 
     cfg, tr = ctx.config, ctx.cell["traffic_params"]
     device = torch.device(ctx.device)
-    net = Net(cfg["network"], cfg["clip_len"], cfg["size"])
+    net = Net(cfg["network"], cfg["clip_len"], cfg["size"], ctx.root)
     params = weights.make(net, ctx.seed, device)
     pool = traffic.train_pool(cfg, tr, ctx.seed, device, rank)[
         :tr["checked_steps"]]
@@ -127,7 +127,7 @@ def control_serve(ctx, below: str = "fp8"):
 
     cfg, tr = ctx.config, ctx.cell["traffic_params"]
     device = torch.device(ctx.device)
-    net = Net(cfg["network"], cfg["clip_len"], cfg["size"])
+    net = Net(cfg["network"], cfg["clip_len"], cfg["size"], ctx.root)
     params = weights.make(net, ctx.seed, device)
     weights.calibrate(net, params, ctx.seed, tr["calibration_clips"], device)
     embed = traffic.class_embeddings(tr["classes"], ctx.seed)

@@ -92,7 +92,7 @@ def run(ctx, rates=None) -> dict:
         torch.device(ctx.device)
     rec = Recorder(ctx.trace)
     notes = []
-    net = Net(cfg["network"], cfg["clip_len"], cfg["size"])
+    net = Net(cfg["network"], cfg["clip_len"], cfg["size"], ctx.root)
     params = weights.make(net, ctx.seed, device)
     weights.calibrate(net, params, ctx.seed, tr["calibration_clips"], device)
     names = [f"class_{i:03d}" for i in range(tr["classes"])]
@@ -175,7 +175,7 @@ def run(ctx, rates=None) -> dict:
                  f"{out['late_ms']:.1f} ms after it was due; "
                  f"{out['failed']} failed; latency p50 {out['p50_ms']:.1f} "
                  f"ms, p95 {out['p95_ms']:.1f} ms")
-    record = Record(cfg=cfg, cell=ctx.cell, chips=ctx.chips,
+    record = Record(root=ctx.root, cfg=cfg, cell=ctx.cell, chips=ctx.chips,
                     steps=len(results), window_s=rec.window_s,
                     seconds=dict(rec.seconds), trace=rec.trace,
                     counters=counters)

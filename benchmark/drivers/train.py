@@ -110,7 +110,7 @@ def process(ctx, rank: int = 0, world: int = 1,
     synced = world > 1
     lead = rank == 0
     rec = Recorder(ctx.trace and lead)
-    net = Net(cfg["network"], cfg["clip_len"], cfg["size"])
+    net = Net(cfg["network"], cfg["clip_len"], cfg["size"], ctx.root)
     params = weights.make(net, ctx.seed, device)
     config, model, optimizer, step = build_program(cfg, params, tr["lr"],
                                                     device)
@@ -196,8 +196,9 @@ def process(ctx, rank: int = 0, world: int = 1,
              f"{time.time() - t_ref:.1f} s"]
     numbers = checks.train_numbers(prog, ref)
     clips = tr["batch"] * cfg["n_clips"] * world
-    record = Record(cfg=cfg, cell=ctx.cell, chips=world, steps=steps,
-                    clips_per_step=clips, local_clips=clips // world,
+    record = Record(root=ctx.root, cfg=cfg, cell=ctx.cell, chips=world,
+                    steps=steps, clips_per_step=clips,
+                    local_clips=clips // world,
                     window_s=window_s, seconds=dict(rec.seconds),
                     trace=rec.trace, counters={})
     return {"e2e": {"train_clips_per_s": steps * clips / window_s,

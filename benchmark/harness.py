@@ -1,13 +1,16 @@
-"""What every cell shares: finding a cell, its configuration, its driver and
-the per-layer metrics' readers by name, the set-up clock, the card's
-identity, the check that no JAX module was loaded, and the result line.
+"""What every cell shares: finding a cell, its configuration, its driver,
+its network and the per-layer metrics' readers by name, the set-up clock,
+the card's identity, the check that no JAX module was loaded, and the
+result line.
 
-Everything of one configuration, cell or per-layer metric lives in files of
-its own: benchmark/configs/<config>.json, benchmark/workloads/<cell>.json
-(its driver by name, its traffic and its limits) and
+Everything of one configuration, cell, network or per-layer metric lives in
+files of its own: benchmark/configs/<config>.json,
+benchmark/workloads/<cell>.json (its driver by name, its traffic and its
+limits), benchmark/networks/<network>.py (the network's description, its
+plain reference forward and its tiny CPU sizes) and
 benchmark/metrics/<metric>.py (a `read(record)` that returns a number or
-None). A later cell, configuration or metric is new files and new entries
-in BENCHMARK.json.
+None). A later cell, configuration, network or metric is new files and new
+entries in BENCHMARK.json.
 """
 
 from __future__ import annotations
@@ -86,14 +89,27 @@ def metrics_for(bench: dict, kind: str, cell: str):
             if "workloads" not in m or cell in m["workloads"]]
 
 
-def load_reader(root: str, name: str):
-    """benchmark/metrics/<name>.py's read(record)."""
-    path = os.path.join(root, "benchmark", "metrics", name + ".py")
+def _load_file(root: str, kind: str, name: str):
+    """The module of benchmark/<kind>/<name>.py under `root`."""
+    path = os.path.join(root, "benchmark", kind, name + ".py")
+    if not os.path.isfile(path):
+        raise FileNotFoundError(f"no {kind[:-1]} {name!r}: {path} is missing")
     spec = importlib.util.spec_from_file_location(
-        "benchmark.metrics." + name.replace(".", "_"), path)
+        f"benchmark.{kind}." + name.replace(".", "_"), path)
     module = importlib.util.module_from_spec(spec)
     spec.loader.exec_module(module)
-    return module.read
+    return module
+
+
+def load_reader(root: str, name: str):
+    """benchmark/metrics/<name>.py's read(record)."""
+    return _load_file(root, "metrics", name).read
+
+
+def load_network(root: str, name: str):
+    """benchmark/networks/<name>.py: its describe(clip_len, size), its
+    embed(net, params, clips, n_clips, quant, state) and its TINY sizes."""
+    return _load_file(root, "networks", name)
 
 
 def load_driver(name: str):

@@ -20,6 +20,6 @@ def read(record):
         return None
     cfg = record.cfg
     _, epilogues, _ = arch.network(cfg["network"], cfg["clip_len"],
-                                   cfg["size"])
+                                   cfg["size"], record.root)
     bound = counts.k2_step_bound_seconds(epilogues, record.local_clips)
     return 100.0 * bound * record.steps / spent

@@ -13,7 +13,7 @@ def read(record):
         return None
     cfg = record.cfg
     convs, _, linears = arch.network(cfg["network"], cfg["clip_len"],
-                                     cfg["size"])
+                                     cfg["size"], record.root)
     flops = counts.train_flops(convs, linears, record.clips_per_step)
     rate = flops * record.steps / record.trace.window_s
     return 100.0 * rate / (record.chips * counts.BF16_FLOPS_PER_S)

@@ -1,6 +1,6 @@
 """Plain PyTorch forward passes of the measured networks, in float32, over a
-dict of parameters keyed as the published models' (torchvision's
-r2plus1d_18 under `model.`, the fork's MLP head, C3D's c3d.pickle names).
+dict of parameters keyed as the published models' (each network's file
+under benchmark/networks/ says whose keys).
 
 No kernel, no cache, no batching of the program: conv3d, a two-pass batch
 norm, ReLU, pooling and linears as the papers describe them. `quant` wraps
@@ -19,7 +19,7 @@ import torch.distributed as dist
 import torch.nn.functional as F
 from torch.utils import checkpoint as ckpt
 
-from benchmark.yardstick import arch
+from benchmark import harness
 
 BN_EPS = 1e-5
 
@@ -68,13 +68,16 @@ def batch_norm_eval(x, weight, bias, mean, var, eps=BN_EPS):
 
 class Net:
     """One network at one clip shape: forward(params, x, ...) -> unit
-    embeddings [B, 300] from x [B, n_clips, T, S, S, 3]."""
+    embeddings [B, 300] from x [B, n_clips, T, S, S, 3]. The network's
+    layers and its forward are benchmark/networks/<network>.py's, found
+    under `root`; the pieces they share are here."""
 
-    def __init__(self, network: str, clip_len: int, size: int):
-        self.name = network
+    def __init__(self, network: str, clip_len: int, size: int,
+                 root: str = harness.ROOT):
         self.clip_len, self.size = clip_len, size
-        self.convs, self.epilogues, self.linears = arch.network(
-            network, clip_len, size)
+        self.network = harness.load_network(root, network)
+        self.convs, self.epilogues, self.linears = self.network.describe(
+            clip_len, size)
         self.spec = {c.name: c for c in self.convs}
 
     # ------------------------------------------------------------ pieces --
@@ -82,7 +85,7 @@ class Net:
         c = self.spec[name]
         b = P.get(name + ".bias") if c.bias else None
         return quant(F.conv3d(quant(x), quant(P[name + ".weight"]), b,
-                              c.stride, c.padding))
+                              c.stride, c.padding, 1, c.groups))
 
     def bn(self, P, name, x, state):
         if state.get("record") is not None:
@@ -95,76 +98,34 @@ class Net:
                                P[name + ".running_mean"],
                                P[name + ".running_var"])
 
-    def block(self, P, p, x, has_down, quant, state):
-        h = self.conv(P, f"{p}.conv1.0.0", x, quant)
-        h = torch.relu(self.bn(P, f"{p}.conv1.0.1", h, state))
-        h = self.conv(P, f"{p}.conv1.0.3", h, quant)
-        h = torch.relu(self.bn(P, f"{p}.conv1.1", h, state))
-        h = self.conv(P, f"{p}.conv2.0.0", h, quant)
-        h = torch.relu(self.bn(P, f"{p}.conv2.0.1", h, state))
-        h = self.conv(P, f"{p}.conv2.0.3", h, quant)
-        res = x
-        if has_down:
-            res = self.bn(P, f"{p}.downsample.1",
-                          self.conv(P, f"{p}.downsample.0", x, quant), state)
-        return quant(torch.relu(self.bn(P, f"{p}.conv2.1", h, state) + res))
+    @staticmethod
+    def block(run, x, state):
+        """run(x), recomputed in the backward under `state["remat"]`."""
+        if state["remat"] and torch.is_grad_enabled():
+            return ckpt.checkpoint(run, x, use_reentrant=False,
+                                   preserve_rng_state=False)
+        return run(x)
 
-    def r2plus1d_features(self, P, x, quant, state, remat):
-        h = self.conv(P, "model.stem.0", x, quant)
-        h = torch.relu(self.bn(P, "model.stem.1", h, state))
-        h = self.conv(P, "model.stem.3", h, quant)
-        h = torch.relu(self.bn(P, "model.stem.4", h, state))
-        for si in range(4):
-            for bi in range(2):
-                p = f"model.layer{si + 1}.{bi}"
-                down = f"{p}.downsample.0" in self.spec
-
-                def run(t, p=p, down=down):
-                    return self.block(P, p, t, down, quant, state)
-
-                if remat and torch.is_grad_enabled():
-                    h = ckpt.checkpoint(run, h, use_reentrant=False,
-                                        preserve_rng_state=False)
-                else:
-                    h = run(h)
-        return h.mean(dim=(2, 3, 4))
-
-    def c3d_features(self, P, x, quant):
-        h = x
-        for name, _, _ in arch.C3D_CONVS:
-            h = torch.relu(self.conv(P, name, h, quant))
-            if name in arch.C3D_POOLS:
-                win, pad = arch.C3D_POOLS[name]
-                h = F.max_pool3d(h, win, win, pad)
-        flat = h.reshape(h.shape[0], -1)  # NCDHW order, as c3d.pickle's fc6
-        return torch.relu(flat @ P["fc6.weight"].t() + P["fc6.bias"])
+    @staticmethod
+    def mlp_head(P, f):
+        """The fork's MLP head over clip-mean features [B, F]."""
+        h = torch.relu(f @ P["output2emb_proj.layers.0.weight"].t()
+                       + P["output2emb_proj.layers.0.bias"])
+        return (h @ P["output2emb_proj.layers.1.weight"].t()
+                + P["output2emb_proj.layers.1.bias"])
 
     # ----------------------------------------------------------- forward --
     def forward(self, P, x, train: bool, quant=identity, synced=False,
                 dropout=None, remat=False, record=None):
         """x [B, nc, T, S, S, 3] float32 -> unit embeddings [B, 300].
-        `dropout`: (rate, torch.Generator) for C3D's head in training;
+        `dropout`: (rate, torch.Generator) for a head with dropout in
+        training; `remat`: recompute the blocks in the backward;
         `record`: a dict that receives each BN's batch (mean, var)."""
         b, nc = x.shape[0], x.shape[1]
         v = x.reshape(b * nc, *x.shape[2:]).permute(0, 4, 1, 2, 3)
         v = v.contiguous()
-        state = {"train": train, "synced": synced, "record": record}
-        if self.name == "c3d":
-            f = self.c3d_features(P, v, quant)
-            if train and dropout is not None and dropout[0] > 0:
-                rate, gen = dropout
-                keep = 1.0 - rate
-                mask = torch.rand(f.shape, generator=gen,
-                                  device=f.device) < keep
-                f = torch.where(mask, f / keep, 0.0)
-            f = f.reshape(b, nc, -1).mean(dim=1)
-            emb = f @ P["regressor.weight"].t() + P["regressor.bias"]
-        else:
-            f = self.r2plus1d_features(P, v, quant, state, remat)
-            f = f.reshape(b, nc, -1).mean(dim=1)
-            h = torch.relu(f @ P["output2emb_proj.layers.0.weight"].t()
-                           + P["output2emb_proj.layers.0.bias"])
-            emb = (h @ P["output2emb_proj.layers.1.weight"].t()
-                   + P["output2emb_proj.layers.1.bias"])
+        state = {"train": train, "synced": synced, "record": record,
+                 "remat": remat, "dropout": dropout}
+        emb = self.network.embed(self, P, v, nc, quant, state)
         return emb / torch.clamp_min(
             torch.linalg.vector_norm(emb, dim=-1, keepdim=True), 1e-12)

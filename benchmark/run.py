@@ -6,10 +6,11 @@
 
 The cell is an entry of BENCHMARK.json's `workloads`; its file
 benchmark/workloads/<cell>.json names its driver (benchmark/drivers/), its
-traffic and its limits, and its configuration file holds the network's
-sizes. The run makes its weights and inputs from --seed, warms up every
-shape it uses (set-up), measures for --seconds, and then holds what the
-timed path produced against the plain reference (benchmark/reference/).
+traffic and its limits; its configuration file names the network
+(benchmark/networks/<network>.py) and holds its sizes. The run makes its
+weights and inputs from --seed, warms up every shape it uses (set-up),
+measures for --seconds, and then holds what the timed path produced
+against the plain reference (benchmark/reference/).
 
 The last line of standard output is one JSON object: `correct`,
 `attempted`, `failed`, `metrics` (the cell's end-to-end metrics; with

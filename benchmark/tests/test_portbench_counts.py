@@ -6,9 +6,24 @@ import math
 
 import pytest
 import torch
+import torch.nn.functional as F
 from torch.utils.flop_counter import FlopCounterMode
 
-from benchmark.yardstick import arch, counts
+from benchmark.reference.models import Net
+from benchmark.yardstick import arch, counts, weights
+
+# a network of one channel-wise conv (groups = channels), found by name as
+# any network is: 3x3x3 as in X3D's blocks, (5,1,1) as in its stem
+CHANNELWISE = '''
+from benchmark.yardstick import arch
+
+
+def describe(clip_len, size):
+    w = arch._Walk((clip_len, size, size))
+    w.conv("dw", {c}, {c}, {kernel}, 1, {padding}, groups={c})
+    return w.convs, w.epilogues, []
+'''
+KERNELS = [((3, 3, 3), (1, 1, 1)), ((5, 1, 1), (2, 0, 0))]
 
 
 def _port_model(network, clip_len, size):
@@ -24,6 +39,10 @@ def _port_model(network, clip_len, size):
     ("r2plus1d_18", 4, 32, 2),
     ("r2plus1d_18", 8, 64, 1),
     ("c3d", 16, 112, 1),
+    ("r3d_18", 4, 32, 2),
+    ("r3d_18", 8, 64, 1),
+    ("mc3_18", 4, 32, 2),
+    ("mc3_18", 8, 64, 1),
 ])
 def test_forward_flops_match_flop_counter(network, clip_len, size, clips):
     model = _port_model(network, clip_len, size)
@@ -32,6 +51,47 @@ def test_forward_flops_match_flop_counter(network, clip_len, size, clips):
         model(x)
     convs, _, linears = arch.network(network, clip_len, size)
     assert counts.forward_flops(convs, linears, clips) == fc.get_total_flops()
+
+
+def _channelwise(tmp_path, kernel, padding, channels):
+    """Net of the one channel-wise conv at 8x14x14 (a file of its own)."""
+    (tmp_path / "benchmark" / "networks").mkdir(parents=True, exist_ok=True)
+    (tmp_path / "benchmark" / "networks" / f"dw{channels}.py").write_text(
+        CHANNELWISE.format(c=channels, kernel=kernel, padding=padding))
+    return Net(f"dw{channels}", 8, 14, str(tmp_path))
+
+
+@pytest.mark.parametrize("kernel,padding", KERNELS)
+def test_channelwise_conv_flops_match_flop_counter(tmp_path, kernel,
+                                                   padding):
+    net = _channelwise(tmp_path, kernel, padding, 192)
+    x, w = torch.zeros(2, 192, 8, 14, 14), torch.zeros(192, 1, *kernel)
+    with FlopCounterMode(display=False) as fc:
+        F.conv3d(x, w, None, 1, padding, 1, 192)
+    assert counts.conv_flops(net.convs[0], 2) == fc.get_total_flops()
+
+
+@pytest.mark.parametrize("kernel,padding", KERNELS)
+def test_channelwise_conv_weights(tmp_path, kernel, padding):
+    w = weights.make(_channelwise(tmp_path, kernel, padding, 4096), 5,
+                     "cpu")["dw.weight"]
+    assert w.shape == (4096, 1, *kernel)
+    # He over a fan-in of prod(kernel): the sample's std and mean within
+    # 5 standard errors of n draws
+    n, want = w.numel(), math.sqrt(2.0 / math.prod(kernel))
+    assert abs(float(w.std()) / want - 1) < 5 / math.sqrt(2 * n)
+    assert abs(float(w.mean())) < 5 * want / math.sqrt(n)
+
+
+@pytest.mark.parametrize("kernel,padding", KERNELS)
+def test_channelwise_reference_conv(tmp_path, kernel, padding):
+    net = _channelwise(tmp_path, kernel, padding, 192)
+    params = weights.make(net, 5, "cpu")
+    x = torch.randn((2, 192, 8, 14, 14),
+                    generator=torch.Generator().manual_seed(1))
+    got = net.conv(params, "dw", x, lambda t: t)
+    want = F.conv3d(x, params["dw.weight"], None, 1, padding, 1, 192)
+    torch.testing.assert_close(got, want, rtol=0, atol=0)
 
 
 def test_published_counts():

@@ -28,7 +28,9 @@ def _port(network, clip_len, size, params):
 
 
 @pytest.mark.parametrize("network,clip_len,size", [("r2plus1d_18", 4, 32),
-                                                   ("c3d", 16, 112)])
+                                                   ("c3d", 16, 112),
+                                                   ("r3d_18", 4, 32),
+                                                   ("mc3_18", 4, 32)])
 @pytest.mark.parametrize("mode", ["train", "eval"])
 def test_forward_matches_the_port(network, clip_len, size, mode):
     net = Net(network, clip_len, size)

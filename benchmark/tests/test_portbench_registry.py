@@ -3,7 +3,11 @@ and new BENCHMARK.json entries alone: the harness finds them by name."""
 
 import json
 import os
+import re
 import shutil
+import time
+
+import pytest
 
 from benchmark import harness, run
 from benchmark.tests import tiny
@@ -15,35 +19,46 @@ def read(record):
 '''
 
 
-def _tiny_root(tmp_path):
+def _tiny_root(tmp_path, network="r2plus1d_18", name="tiny3d",
+               ignore=(), new_metric=True, per_layer=()):
+    """A copied checkout with a tiny float32 configuration `name` of
+    `network`, its cell train.<name>.bs2 and, with `new_metric`, the metric
+    steps.tiny; the cell also in the workloads of the metrics named in
+    `per_layer`. `ignore`: files of the benchmark left out of the copy."""
     root = tmp_path / "checkout"
     shutil.copytree(os.path.join(tiny.ROOT, "benchmark"),
                     root / "benchmark",
-                    ignore=shutil.ignore_patterns("__pycache__"))
+                    ignore=shutil.ignore_patterns("__pycache__", *ignore))
     bench = harness.load_json(os.path.join(tiny.ROOT, "BENCHMARK.json"))
     config = dict(harness.load_json(os.path.join(
         tiny.ROOT, "benchmark", "configs", "r2plus1d_18-mlp.json")),
-        name="tiny3d", clip_len=4, size=32, compute_dtype="float32")
-    (root / "benchmark" / "configs" / "tiny3d.json").write_text(
+        name=name, network=network, clip_len=4, size=32,
+        compute_dtype="float32")
+    (root / "benchmark" / "configs" / f"{name}.json").write_text(
         json.dumps(config))
     cell = tiny.context("train.r2plus1d_18.bs64").cell
-    cell.update(name="train.tiny3d.bs2", config="tiny3d", traffic="bs2",
+    cell.update(name=f"train.{name}.bs2", config=name, traffic="bs2",
                 chips=1)
-    (root / "benchmark" / "workloads" / "train.tiny3d.bs2.json").write_text(
+    (root / "benchmark" / "workloads" / f"{cell['name']}.json").write_text(
         json.dumps(cell))
-    (root / "benchmark" / "metrics" / "steps.tiny.py").write_text(NEW_METRIC)
-    bench["configs"].append({"name": "tiny3d", "source": "test",
-                             "file": "benchmark/configs/tiny3d.json",
+    bench["configs"].append({"name": name, "source": "test",
+                             "file": f"benchmark/configs/{name}.json",
                              "reduced": [], "why": "test"})
     bench["workloads"].append({k: cell[k] for k in (
         "name", "config", "traffic", "chips", "why")})
-    bench["per_layer"].append({
-        "name": "steps.tiny", "unit": "steps", "better": "higher",
-        "source": "program_counter", "layer": "train step",
-        "moves": "train_clips_per_s", "workloads": ["train.tiny3d.bs2"]})
+    if new_metric:
+        (root / "benchmark" / "metrics" / "steps.tiny.py").write_text(
+            NEW_METRIC)
+        bench["per_layer"].append({
+            "name": "steps.tiny", "unit": "steps", "better": "higher",
+            "source": "program_counter", "layer": "train step",
+            "moves": "train_clips_per_s", "workloads": [cell["name"]]})
     for m in bench["end_to_end"]:
         if "workloads" in m and "train.r2plus1d_18.bs64" in m["workloads"]:
-            m["workloads"].append("train.tiny3d.bs2")
+            m["workloads"].append(cell["name"])
+    for m in bench["per_layer"]:
+        if m["name"] in per_layer:
+            m["workloads"].append(cell["name"])
     (root / "BENCHMARK.json").write_text(json.dumps(bench))
     return str(root)
 
@@ -84,3 +99,33 @@ def test_cells_and_files_agree():
         harness.find_cell(tiny.ROOT, w["name"])  # raises where they differ
     for m in bench["per_layer"]:
         assert callable(harness.load_reader(tiny.ROOT, m["name"]))
+
+
+def test_a_new_network_is_one_new_file(tmp_path, capsys):
+    # MC3-18 with the MLP head: a cell of a network the copy has no file of
+    root = _tiny_root(tmp_path, network="mc3_18", name="tinymc3",
+                      ignore=("mc3_18.py",), new_metric=False,
+                      per_layer=("step_mfu.train",))
+    bench, entry, cell, config = harness.find_cell(root, "train.tinymc3.bs2")
+    assert config["network"] == "mc3_18" and config["head"] == "mlp"
+    ctx = harness.Context(root=root, name=cell["name"], seed=7, seconds=1,
+                          trace=False, cell=cell, config=config, chips=1,
+                          t_start=time.time(), device="cpu")
+    with pytest.raises(FileNotFoundError, match=re.escape(os.path.join(
+            "benchmark", "networks", "mc3_18.py"))):
+        run.execute(ctx, bench)
+
+    shutil.copy(os.path.join(tiny.ROOT, "benchmark", "networks",
+                             "mc3_18.py"),
+                os.path.join(root, "benchmark", "networks"))
+    assert run.execute(ctx, bench) == 0
+    line = _line(capsys)
+    assert line["correct"] is True and line["attempted"] > 0
+    assert set(line["metrics"]) == {"train_clips_per_s", "peak_mem_gib",
+                                    "setup_s"}
+
+    ctx.trace = True
+    assert run.execute(ctx, bench) == 0
+    line = _line(capsys)
+    assert line["correct"] is True
+    assert line["metrics"]["step_mfu.train"]["value"] > 0

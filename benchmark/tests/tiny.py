@@ -32,8 +32,7 @@ def context(name: str, seed: int = 7, seconds: int = 1, trace=False,
             compute_dtype=None, chips=None, root=ROOT) -> harness.Context:
     n_chips, cell, config = find(root, name)
     config, cell = dict(config), copy.deepcopy(cell)
-    if config["network"] == "r2plus1d_18":
-        config.update(clip_len=4, size=32)
+    config.update(harness.load_network(root, config["network"]).TINY)
     if compute_dtype:
         config["compute_dtype"] = compute_dtype
     tp = cell["traffic_params"]

@@ -20,9 +20,10 @@ HBM_BYTES_PER_S = 3.35e12
 
 def conv_flops(conv, clips: int) -> int:
     """2 x multiply-adds of one conv over `clips` clips (torch's
-    flop_counter convention)."""
+    flop_counter convention): each output reads cin / groups channels."""
     out = conv.cout * math.prod(conv.out_thw)
-    return 2 * clips * out * conv.cin * math.prod(conv.kernel)
+    return (2 * clips * out * (conv.cin // conv.groups)
+            * math.prod(conv.kernel))
 
 
 def forward_flops(convs, linears, clips: int) -> int:

@@ -1,8 +1,9 @@
 """Seeded weights of a network, made on the device in a few large calls:
-every conv weight from one normal draw (He init over the fan-in), every
-linear from one uniform draw (+-1/sqrt(fan-in)), C3D's conv biases from one
-small uniform draw, BN scale 1 and shift 0. The benchmark hands the same
-dict to the program and to the reference.
+every conv weight from one normal draw (He init over the fan-in: a group's
+input channels times the kernel), every linear from one uniform draw
+(+-1/sqrt(fan-in)), the biased convs' biases from one small uniform draw,
+BN scale 1 and shift 0. The benchmark hands the same dict to the program
+and to the reference.
 
 Serving also needs BN running statistics: `calibrate` takes each BN's batch
 statistics of the plain reference's train-mode forward over a few seeded
@@ -31,14 +32,15 @@ def make(net, seed: int, device) -> Dict[str, torch.Tensor]:
     g = torch.Generator(device).manual_seed(subseed(seed, "weights"))
     out: Dict[str, torch.Tensor] = {}
     convs = net.convs
-    fans = [c.cin * math.prod(c.kernel) for c in convs]
+    fans = [c.cin // c.groups * math.prod(c.kernel) for c in convs]
     sizes = [c.cout * f for c, f in zip(convs, fans)]
     flat = torch.randn(sum(sizes), generator=g, device=device)
     std = torch.tensor([math.sqrt(2.0 / f) for f in fans], device=device)
     flat.mul_(torch.repeat_interleave(
         std, torch.tensor(sizes, device=device)))
     for c, w in zip(convs, flat.split(sizes)):
-        out[c.name + ".weight"] = w.view(c.cout, c.cin, *c.kernel)
+        out[c.name + ".weight"] = w.view(c.cout, c.cin // c.groups,
+                                         *c.kernel)
     biased = [c for c in convs if c.bias]
     if biased:
         b = torch.rand(sum(c.cout for c in biased), generator=g,
