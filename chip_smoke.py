@@ -140,6 +140,14 @@ result line) if it fails:
      statistics moved once);
  15. one --fixconvs step: 37 K2 forward, no K2 backward, one K1; the
      backbone's parameters bit-equal, the head's moved;
+ 15b. --network x3d_m at its train cell's step, X3D_BS clips of
+     16x224x224: phase 6 (K2 forward and backward) and phase 6b (the BN
+     statistics' ops) at X3D-M's 84 train-mode BNs (13 shapes; 54 and 108
+     channels, no multiple of the 8-lane bf16 vector); cli.main's
+     Experiment (bf16 over float32 masters) on one host batch: K1 on it
+     against its plain version, the counters reset just before one step
+     through device_batch read one K1 launch and 84 of each BN op and
+     gradient, then timed steps as in phase 7;
  16. a process group of one under NCCL (r2plus1d_18, 16 clips of
      16x112x112): two float32 steps against the same steps without a group
      (loss rtol 1e-4, parameters atol 2e-5; bit for bit reported), the
@@ -222,10 +230,10 @@ result line) if it fails:
 The line before the last is {"kernels": [...]}, one row for each kernel on
 each main path that launches it ("path": "serve", "train", "train_sun",
 "train_c3d", "serve_c3d", "train_r3d_linear", "train_remat_full",
-"train_remat_convs", "train_fixconvs", "train_dp_world1", "train_dp_2rank"
-or "cli_dp_2rank", the last two counted in process 0, "train_graphs",
-whose K2 rows also give replay_kernels, the kernel nodes of one replay of
-4 steps, "train_tp_2rank", counted in process 0, "serve_replicas",
+"train_remat_convs", "train_fixconvs", "train_x3d", "train_dp_world1",
+"train_dp_2rank" or "cli_dp_2rank", the last two counted in process 0,
+"train_graphs", whose K2 rows also give replay_kernels, the kernel nodes of
+one replay of 4 steps, "train_tp_2rank", counted in process 0, "serve_replicas",
 "dryrun", counted in process 0, or "cli_save_samples"; "op" for K3,
 which is driven through its public op): its launches
 in that path's run, and, at that path's shapes, its error against the plain
@@ -276,6 +284,7 @@ BF16_FLOPS_PER_S = 989e12   # H100 SXM bf16 on the tensor cores, dense
 BN_SEED = 1  # BN scale and bias of every model built here
 LAUNCH_RUN = 20  # launches between two events when a launch is timed alone
 BN_STATS_CLIPS = 64  # the train cell's batch: phase 6b's shapes
+X3D_BS, X3D_SIZE = 64, 224  # X3D-M's train cell: phase 15b's step
 # bf16 against the CPU f32 forward, per video: the two runs round at
 # different places (bf16 conv inputs, outputs and epilogues on one side,
 # none on the other, layers.py:71-74 in the JAX package), ~2^-9 relative per
@@ -935,11 +944,13 @@ def phase_k2_bwd(calls, dev, copy_gbs, key="", clips=TRAIN_BS,
     return out, fwd
 
 
-def phase_bn_stats(calls, dev, copy_gbs, clips=BN_STATS_CLIPS):
+def phase_bn_stats(calls, dev, copy_gbs, clips=BN_STATS_CLIPS, key=""):
     """6b: the BN statistics' ops at every train-mode BN of one train step
     of `clips` clips (the shapes of phase 6's `calls`, widened), checked in
-    f32 and bf16 and timed in bf16; then the traced step of
-    tools/check_bn_brackets.py in a process of its own. -> the record."""
+    f32 and bf16 and timed in bf16; then, for r2plus1d_18 (no `key`), the
+    traced step of tools/check_bn_brackets.py in a process of its own.
+    `key` names another model in the record and the lines. -> the
+    record."""
     import torch
 
     from torch_helpers import bn_sums_ref64
@@ -958,8 +969,8 @@ def phase_bn_stats(calls, dev, copy_gbs, clips=BN_STATS_CLIPS):
 
     per_shape = {}
     for (shape, _, _), n in calls.items():
-        key = (clips, *shape[1:])
-        per_shape[key] = per_shape.get(key, 0) + n
+        wide = (clips, *shape[1:])
+        per_shape[wide] = per_shape.get(wide, 0) + n
     out = {"clips": clips, "shapes": [], "ms": 0.0, "launch_ms": 0.0,
            "plain_ms": 0.0, "sums_ms": 0.0, "library_ms": 0.0, "bytes": 0,
            "flops": 0, "max_abs_err": 0.0, "sums_max_rel_err": 0.0}
@@ -1034,8 +1045,8 @@ def phase_bn_stats(calls, dev, copy_gbs, clips=BN_STATS_CLIPS):
                                   "sums_rel_err": rel, **t,
                                   "GB_per_s": by / 1e9 / (
                                       t["launch_ms"] / 1e3)})
-            say(f"[BN stats] {'x'.join(map(str, shape))} bf16 x{n}: sums "
-                f"within {rel:.2g} of float64, the rest bit for bit; "
+            say(f"[BN stats{key}] {'x'.join(map(str, shape))} bf16 x{n}: "
+                f"sums within {rel:.2g} of float64, the rest bit for bit; "
                 f"wrappers {t['ms']:.4f} ms, sums + gradient launches "
                 f"alone {t['launch_ms']:.4f} ms "
                 f"({by / 1e9 / (t['launch_ms'] / 1e3):.0f} GB/s), plain "
@@ -1045,13 +1056,16 @@ def phase_bn_stats(calls, dev, copy_gbs, clips=BN_STATS_CLIPS):
             del launch_s, launch_g, rows2d
         del x32, x, sums, again, dx, mom, dmom
     text = bound(out, out["bytes"], out["flops"], copy_gbs)
-    say(f"[BN stats] per bf16 train step at {clips} clips over "
+    say(f"[BN stats{key}] per bf16 train step at {clips} clips over "
         f"{sum(per_shape.values())} BNs: wrappers {out['ms']:.3f} ms, "
         f"launches alone {out['launch_ms']:.3f} ms, plain "
         f"{out['plain_ms']:.3f} ms; the sums alone {out['sums_ms']:.3f} ms "
         f"against torch.batch_norm_stats {out['library_ms']:.3f} ms; "
         + text)
     torch.cuda.empty_cache()
+    if key:
+        RECORD["bn_stats" + key] = out
+        return out
     path = os.path.join(tempfile.mkdtemp(prefix="bn_brackets_"), "out.json")
     root = os.path.dirname(os.path.abspath(__file__))
     proc = subprocess.run(
@@ -1118,12 +1132,14 @@ def bn_running(model):
                       if n.endswith(("running_mean", "running_var"))])
 
 
-def timed_steps(exp, batch, class_embed, smi, tag):
+def timed_steps(exp, batch, class_embed, smi, tag, clips=TRAIN_BS,
+                size=SIZE):
     """TRAIN_STEPS steps of `exp`'s train step on one repeated batch of
-    TRAIN_BS clips: every step timed by CUDA events and by the host's clock
-    around a synchronise, then the timed ones again queued back to back;
-    finite falling losses, moved BN statistics (where the model has BN),
-    float32 masters. -> the measurements."""
+    `clips` clips of CLIP_LEN x `size` x `size`: every step timed by CUDA
+    events and by the host's clock around a synchronise, then the timed
+    ones again queued back to back; finite falling losses, moved BN
+    statistics (where the model has BN), float32 masters. -> the
+    measurements."""
     import torch
 
     has_bn = any(n.endswith("running_mean") for n, _ in
@@ -1168,15 +1184,15 @@ def timed_steps(exp, batch, class_embed, smi, tag):
     queued_ms = (time.perf_counter() - t0) * 1e3 / n_queued
     queued_event_ms = a.elapsed_time(b) / n_queued
     losses.append(float(m["loss"]))
-    say(f"[{tag}] repeated batch of {TRAIN_BS} x {CLIP_LEN}x{SIZE}x{SIZE} "
+    say(f"[{tag}] repeated batch of {clips} x {CLIP_LEN}x{size}x{size} "
         f"bf16: losses {[round(v, 5) for v in losses]}")
     say(f"[{tag}] step {event_ms:.2f} ms by CUDA events = "
-        f"{TRAIN_BS / event_ms * 1e3:.1f} clips/s, {step_ms:.1f} ms by the "
-        f"host's clock = {TRAIN_BS / step_ms * 1e3:.1f} clips/s (medians of "
+        f"{clips / event_ms * 1e3:.1f} clips/s, {step_ms:.1f} ms by the "
+        f"host's clock = {clips / step_ms * 1e3:.1f} clips/s (medians of "
         f"{n_queued} synchronised steps after {TRAIN_WARMUP} warm-up steps; "
         f"first step {times[0]:.0f} ms); queued back to back "
         f"{queued_event_ms:.2f} ms by events, {queued_ms:.1f} ms by the "
-        f"host's clock = {TRAIN_BS / queued_ms * 1e3:.1f} clips/s; peak "
+        f"host's clock = {clips / queued_ms * 1e3:.1f} clips/s; peak "
         f"memory {peak:.2f} GiB  ({smi})")
     say(f"[{tag}] every step, ms by events: "
         f"{[round(v, 2) for v in ev_times]}; by the host's clock: "
@@ -1195,9 +1211,9 @@ def timed_steps(exp, batch, class_embed, smi, tag):
         "queued_step_ms": queued_ms, "step_event_ms": event_ms,
         "step_event_ms_all": ev_times,
         "queued_step_event_ms": queued_event_ms,
-        "event_clips_per_s": TRAIN_BS / event_ms * 1e3,
-        "clips_per_s": TRAIN_BS / step_ms * 1e3,
-        "queued_clips_per_s": TRAIN_BS / queued_ms * 1e3, "peak_GiB": peak}
+        "event_clips_per_s": clips / event_ms * 1e3,
+        "clips_per_s": clips / step_ms * 1e3,
+        "queued_clips_per_s": clips / queued_ms * 1e3, "peak_GiB": peak}
 
 
 def eval_forward_rate(exp, clips_per_dispatch, smi, tag):
@@ -2259,8 +2275,8 @@ def cli_epoch(args, tag, want):
     return summary, launches, wall
 
 
-def experiment(args, dev):
-    """cli.main's Experiment for `args`, one host batch of TRAIN_BS clips of
+def experiment(args, dev, bs=TRAIN_BS):
+    """cli.main's Experiment for `args`, one host batch of `bs` clips of
     its synthetic training table and the table's class embeddings on the
     card. -> (exp, host batch, class embeddings)."""
     import numpy as np
@@ -2281,7 +2297,7 @@ def experiment(args, dev):
     datasets = build_datasets(cfg, None)
     exp = train_cli.Experiment(cfg, datasets, device=dev)
     table = datasets["training"][0]
-    host = next(iter(HostPipeline(table, cfg, TRAIN_BS, seed=cfg.seed)))
+    host = next(iter(HostPipeline(table, cfg, bs, seed=cfg.seed)))
     ce = torch.from_numpy(np.asarray(table.class_embed, np.float32)).to(dev)
     return exp, host, ce
 
@@ -2400,6 +2416,77 @@ def phase_train_resnet18(tmp, dev, smi, copy_gbs):
     RECORD["train_r3d_linear"] = {"launches": launches,
                                   "cli_summary": summary, **timed}
     return launches, k2f, k2b
+
+
+def phase_train_x3d(tmp, dev, smi, copy_gbs):
+    """15b: X3D-M's BN kernels against their plain versions at its 84
+    train-mode BNs of X3D_BS clips, then one step of cli.main's Experiment
+    with the counters reset just before it, and timed steps. -> (that
+    step's launches, K1's record, K2 forward's, K2 backward's, the
+    statistics')."""
+    import numpy as np
+    import torch
+
+    from torch_helpers import bf16_ulps
+    from zeroshotvideoclassification_tpu_torch.cli.infer import load_model
+    from zeroshotvideoclassification_tpu_torch.config import Config
+
+    m, _ = load_model(Config(network="x3d_m", size=X3D_SIZE,
+                             clip_len=CLIP_LEN, compute_dtype="float32"),
+                      None, dev)
+    calls = epilogue_calls(m, torch.zeros(
+        (X3D_BS, 1, CLIP_LEN, X3D_SIZE, X3D_SIZE, 3), device=dev))
+    check(sum(calls.values()) == 84 and len({k[0] for k in calls}) == 13,
+          f"x3d_m's epilogues {calls}")
+    del m
+    torch.cuda.empty_cache()
+    k2b, k2f = phase_k2_bwd(calls, dev, copy_gbs, key="_x3d", clips=X3D_BS)
+    torch.cuda.empty_cache()
+    stats = phase_bn_stats(calls, dev, copy_gbs, clips=X3D_BS, key="_x3d")
+    torch.cuda.empty_cache()
+
+    args = cli_argv(tmp, dev, "bfloat16", X3D_BS, X3D_BS, "--size",
+                    str(X3D_SIZE), network="x3d_m")
+    exp, host, ce = experiment(args, dev, bs=X3D_BS)
+    k1_args = [torch.from_numpy(np.ascontiguousarray(getattr(host, k)))
+               .to(dev)
+               for k in ("canvas", "y0", "y1", "wy", "x0", "x1", "wx")]
+    k1 = {"shapes": []}
+    for dt in (torch.float32, torch.bfloat16):
+        row, want = k1_compare(k1_args, dt, f"x3d_m batch of {X3D_BS}")
+        k1["shapes"].append(row)
+    k1["max_abs_err"] = max(r["max_abs_err"] for r in k1["shapes"])
+    for k in ("ms", "launch_ms", "plain_ms"):
+        k1[k] = row[k]
+    del k1_args
+    zero_counts()
+    batch = to_card(exp, host)
+    m = exp.train_step(batch["x"], batch["z"], batch["label"],
+                       batch["weight"], ce)
+    torch.cuda.synchronize()
+    launches = read_counts()
+    say(f"[train_x3d] one step of {X3D_BS} x {CLIP_LEN}x{X3D_SIZE}x"
+        f"{X3D_SIZE} through device_batch: loss {float(m['loss']):.5f}, "
+        f"launches {launches}")
+    check(math.isfinite(float(m["loss"])), f"x3d_m's loss {m['loss']}")
+    check(launches == expect(1, 84, 84),
+          f"train_x3d: launches {launches}, want 84 of each BN op")
+    check(tuple(batch["x"].shape) == (X3D_BS, 1, CLIP_LEN, X3D_SIZE,
+                                      X3D_SIZE, 3)
+          and batch["x"].dtype == torch.bfloat16, "x3d_m batch shape")
+    ulps = bf16_ulps(batch["x"].reshape(want.shape), want)
+    check(ulps <= 1.0, f"device_batch's bf16 clips are {ulps} ulp from the "
+                       f"plain transform of the same host batch")
+    say(f"[K1] x3d_m batch of {X3D_BS} -> bfloat16 (device_batch's output "
+        f"within {ulps:.2f} ulp of the plain transform): "
+        + bound(k1, row["bytes"], row["flops"], copy_gbs))
+    del want
+    timed = timed_steps(exp, batch, ce, smi, "train_x3d", clips=X3D_BS,
+                        size=X3D_SIZE)
+    exp.log.close()
+    RECORD["train_x3d"] = {"launches": launches, **timed}
+    RECORD["k1_x3d"] = k1
+    return launches, k1, k2f, k2b, stats
 
 
 def phase_remat(tmp, dev, smi):
@@ -4397,6 +4484,10 @@ def main(argv=None):
         fix_launches = phase_fixconvs(tmp, dev)
         lap('15 fixconvs')
         torch.cuda.empty_cache()
+        x3d_launches, k1_x3d, k2_x3d, k2b_x3d, bn_x3d = phase_train_x3d(
+            tmp, dev, smi, copy_gbs)
+        lap('15b train_x3d')
+        release()
         k1_dp, k2b_dp, k2_dp = phase_dp_kernels(tmp, dev, copy_gbs)
         lap('16 dp kernels')
         torch.cuda.empty_cache()
@@ -4512,6 +4603,21 @@ def main(argv=None):
             fix_launches, k1_train),
         row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train_fixconvs",
             fix_launches, k2_train),
+        # X3D-M (phase 15b): one step's launches, each kernel held and
+        # timed at its train cell's 64 clips of 16x224x224
+        row("video_transform", "video_transform.cu", k1_at, "train_x3d",
+            x3d_launches, k1_x3d),
+        row("bn_apply_relu", "bn_apply_relu.cu", k2_at, "train_x3d",
+            x3d_launches, k2_x3d),
+        row("bn_apply_relu_bwd", "bn_apply_relu.cu", "bn_pallas.py:173",
+            "train_x3d", x3d_launches, k2b_x3d),
+        {**row("bn_sums", "bn_stats.cu", "", "train_x3d", x3d_launches,
+               bn_x3d, clips=bn_x3d["clips"],
+               grad_launches=x3d_launches["bn_sums_grad"],
+               moments_launches=x3d_launches["bn_moments"],
+               moments_grad_launches=x3d_launches["bn_moments_grad"],
+               sums_ms=bn_x3d["sums_ms"]),
+         "replaces": None},
         # data parallelism: a group of one at the training path's shapes;
         # two processes at DP_LOCAL clips each, launches counted in process
         # 0 (process 1's are held equal to them)

@@ -1,7 +1,8 @@
 """The launch plans of the port's redesigned kernels, which are plain
 Python and so testable without a GPU: K2's cuts of a [n / C, C] tensor
 (ops/bn_cuda.fwd_plan, bwd_plan, which the BN statistics' sums take too) as
-properties over every epilogue shape of r2plus1d_18 and over random (n, C), numpy walks of the kernels' index and
+properties over every epilogue shape of r2plus1d_18 and X3D-M and over
+random (n, C), numpy walks of the kernels' index and
 summation schemes under those plans against the plain versions, K1's and
 K4's bands and staging (ops/resample_cuda.transform_plan, one plan for the
 one kernel template) walked in numpy over the pipeline's canvases and the
@@ -46,6 +47,16 @@ EPILOGUES_32 = [(32, *shape[1:]) for shape in EPILOGUES]
 # and at 64 clips (the train cell's step), where the BN statistics' sums
 # (ops/bn_stats.py) take bwd_plan and their gradient fwd_plan
 EPILOGUES_64 = [(64, *shape[1:]) for shape in EPILOGUES]
+# the distinct BN shapes of X3D-M at its train cell's 64 clips of
+# 16x224x224 (models/x3d.py: the stem's 24 at 112x112, then each stage's
+# inner width before and after its strided conv_b, its width, the head's
+# 432), 54 and 108 channels no multiple of the 8-lane bf16 vector
+X3D_64 = [(64, 16, 112, 112, 24), (64, 16, 112, 112, 54),
+          (64, 16, 56, 56, 54), (64, 16, 56, 56, 24),
+          (64, 16, 56, 56, 108), (64, 16, 28, 28, 108),
+          (64, 16, 28, 28, 48), (64, 16, 28, 28, 216),
+          (64, 16, 14, 14, 216), (64, 16, 14, 14, 96),
+          (64, 16, 14, 14, 432), (64, 16, 7, 7, 432), (64, 16, 7, 7, 192)]
 
 
 def _assert_bwd_plan(n, c, itemsize, aligned):
@@ -71,7 +82,7 @@ def _assert_bwd_plan(n, c, itemsize, aligned):
 
 
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_64)
+@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_64 + X3D_64)
 def test_bwd_plan_at_every_epilogue_of_the_model(shape, itemsize):
     n, c = int(np.prod(shape)), shape[-1]
     plan = _assert_bwd_plan(n, c, itemsize, True)
@@ -164,7 +175,8 @@ def _assert_fwd_plan(n, c, itemsize, aligned):
 
 @pytest.mark.parametrize("aligned", [True, False])
 @pytest.mark.parametrize("itemsize", [2, 4])
-@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_32 + EPILOGUES_64)
+@pytest.mark.parametrize("shape", EPILOGUES + EPILOGUES_32 + EPILOGUES_64
+                         + X3D_64)
 def test_fwd_plan_at_every_epilogue_of_the_model(shape, itemsize, aligned):
     n, c = int(np.prod(shape)), shape[-1]
     plan = _assert_fwd_plan(n, c, itemsize, aligned)

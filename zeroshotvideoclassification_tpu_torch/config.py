@@ -59,6 +59,8 @@ class Config:
 
     # ---- network (reference main.py:45-46) ----
     network: str = "r2plus1d_18"  # r2plus1d_18 | r3d_18 | mc3_18 | c3d | resnet18
+                                  # | x3d_m (the port's alone; its published
+                                  # clip is --size 224)
     head: str = "mlp"             # 'mlp' = active fork head (network.py:517,595-600)
                                   # 'linear' = upstream paper head (network.py:50-80)
     clip_pool: str = "feature"    # multi-clip pooling: 'feature' = clip-mean

@@ -15,7 +15,10 @@ top level, the heads as `output2emb_proj.layers.{0,1}` or `regressor`. fc6
 crosses as a plain transpose: both packages flatten its input in NCDHW
 order. It is the inverse of zeroshotvideoclassification_tpu/models/
 porting.py:_port_reference_sd: from_jax then _port_reference_sd gives back
-the trees.
+the trees. X3D-M (`model.blocks.`) has no counterpart in the JAX package:
+its leaves cross as `backbone/x3d/<its module path>/<torch leaf name>` in
+the port's own layouts (OIDHW convs), running statistics in model_state,
+so that the port's checkpoints hold it.
 to_jax(state_dict) is the way back, (params, model_state) as nested dicts of
 numpy arrays, so that parameters and BN statistics after some training steps
 can be compared leaf by leaf. adam_from_jax / adam_to_jax carry Adam's
@@ -61,6 +64,8 @@ _HEAD = {"fc1": "output2emb_proj.layers.0", "fc2": "output2emb_proj.layers.1",
 TP_AXES = {f"output2emb_proj.{k}": axis for k, axis in MLP.TP_AXES.items()}
 # C3D's layers, the same names in both packages
 _C3D = tuple(name for name, _, _ in CONVS) + ("fc6",)
+# X3D-M's leaves, which only the port has, under backbone/<this>/
+X3D_PATH = "x3d"
 _LEAF = {"w": "weight", "b": "bias", "scale": "weight", "bias": "bias",
          "mean": "running_mean", "var": "running_var"}
 
@@ -81,6 +86,8 @@ def torch_key(path: str) -> str:
     """'backbone/layer1_0/conv1/conv_s/w' -> 'model.layer1.0.conv1.0.0.weight'
     (params and model_state paths alike); unknown paths raise ValueError."""
     parts = path.split("/")
+    if parts[:2] == ["backbone", X3D_PATH] and len(parts) > 3:
+        return "model." + ".".join(parts[2:])
     try:
         leaf = _LEAF[parts[-1]]
         if parts[0] == "head":
@@ -161,6 +168,10 @@ def jax_path(key: str):
     mod, _, leaf = key.rpartition(".")
     if leaf == "num_batches_tracked":
         return None
+    if mod.startswith("model.blocks."):
+        tree = "model_state" if leaf.startswith("running_") else "params"
+        return tree, f"backbone/{X3D_PATH}/" + key[len("model."):].replace(
+            ".", "/")
     try:
         wb = {"weight": "w", "bias": "b"}[leaf] if leaf in (
             "weight", "bias") else None

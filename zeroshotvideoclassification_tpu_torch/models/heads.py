@@ -4,7 +4,8 @@ Counterpart of zeroshotvideoclassification_tpu/models/heads.py, all heads
 in float32:
 
   * 'mlp'    the fork's head: clip-mean of the pooled backbone features ->
-             Linear(512, 512) -> ReLU -> Linear(512, 300) -> L2 normalize;
+             Linear(f, f) -> ReLU -> Linear(f, 300) -> L2 normalize, f the
+             backbone's feature_dim (512; X3D-M's 2048);
   * 'linear' the paper's head: clip-mean -> dropout 0.05 -> Linear(512,
              300) -> L2 normalize;
   * 'c3d'    relu(fc6) -> dropout 0.10 BEFORE the clip-mean ->
@@ -28,7 +29,8 @@ one model-group all-reduce after fc2, the bias added once after it. The
 linear and C3D heads, and every backbone, are replicated.
 
 Key names follow the reference (network.py:50-180, :481, :517): a
-VideoResNet under `model.`, the mlp head under
+VideoResNet (or X3D-M, under PyTorchVideo's names) under `model.`, the mlp
+head under
 `output2emb_proj.layers.{0,1}`, the linear and C3D heads as `regressor`,
 and C3D's layers (conv1 ... conv5b, fc6) at the TOP level, beside
 `regressor`. So a reference checkpoint, c3d.pickle and the bridge from the
@@ -51,6 +53,7 @@ from zeroshotvideoclassification_tpu_torch.models.resnet3d import (
     r2plus1d_18,
     r3d_18,
 )
+from zeroshotvideoclassification_tpu_torch.models.x3d import X3D, x3d_m
 from zeroshotvideoclassification_tpu_torch.parallel.multihost import (
     copy_to_model,
     reduce_from_model,
@@ -224,20 +227,41 @@ def routed_head(config) -> str:
     return getattr(config, "head", "mlp")
 
 
+def routed_backbone(config):
+    """-> (class, builder) of the backbone get_network builds for `config`:
+    'x3d_m' (X3D-M, models/x3d.py, which the JAX package does not have),
+    then the JAX get_network's substring match on Config.network ('c3d',
+    '2plus1d', 'mc3', 'r3d', then 'resnet18' -> an R3D-18)."""
+    name = config.network
+    if name == "x3d_m":
+        return X3D, x3d_m
+    for key, cls, build in (("c3d", C3D, C3D), ("2plus1d", VideoResNet,
+                                                r2plus1d_18),
+                            ("mc3", VideoResNet, mc3_18),
+                            ("r3d", VideoResNet, r3d_18),
+                            ("resnet18", VideoResNet, r3d_18)):
+        if key in name:
+            return cls, build
+    raise ValueError(f"Network {name!r} not available!")
+
+
 def check_tensor_parallel(config, tp: int) -> None:
     """ValueError where --tp `tp` cannot shard the head get_network builds
-    for `config`: only the mlp head shards (over its VideoResNet's
-    feature width); the linear and C3D heads are replicated at any tp."""
+    for `config`: only the mlp head shards (over its backbone's feature
+    width, 512 or X3D-M's 2048); the linear and C3D heads are replicated at
+    any tp."""
     if tp > 1 and routed_head(config) == "mlp":
-        check_tp_width(VideoResNet.feature_dim, tp)
+        check_tp_width(routed_backbone(config)[0].feature_dim, tp)
 
 
 def get_network(config) -> ZeroShotModel:
-    """Backbone and head routing of the JAX get_network: substring match on
-    Config.network ('c3d', '2plus1d', 'mc3', 'r3d', then 'resnet18' -> an
-    R3D-18 with the linear head); C3D takes its own head and dropout 0.10,
-    the linear head dropout 0.05. --remat ('none' / False mean off) applies
-    to the VideoResNets; on C3D it changes nothing and says so on stderr."""
+    """Backbone (routed_backbone: x3d_m, whose published clip is --size
+    224, c3d, r2plus1d_18, mc3_18, r3d_18, resnet18 -> an R3D-18 with the
+    linear head) and head routing; C3D takes its own head and dropout 0.10,
+    the linear head dropout 0.05.
+    --remat ('none' / False mean off) applies to the VideoResNets and X3D-M
+    (each block rematerialised); on C3D it changes nothing and says so on
+    stderr."""
     name = config.network
     head = routed_head(config)
     dropout = 0.0
@@ -245,22 +269,15 @@ def get_network(config) -> ZeroShotModel:
     if str(remat) in ("False", "none", ""):
         remat = False  # before branching: 'none' is truthy
     mode = ("convs" if remat == "convs" else "full") if remat else False
-    if "c3d" in name:
+    cls, build = routed_backbone(config)
+    if cls is C3D:
         backbone, dropout = C3D(), 0.10
         if remat:
             print(f"WARNING: --remat {remat} has no effect on {name!r} "
                   f"(only the VideoResNet backbones rematerialize)",
                   file=sys.stderr)
-    elif "2plus1d" in name:
-        backbone = r2plus1d_18(mode)
-    elif "mc3" in name:
-        backbone = mc3_18(mode)
-    elif "r3d" in name:
-        backbone = r3d_18(mode)
-    elif "resnet18" in name:
-        backbone = r3d_18(mode)
     else:
-        raise ValueError(f"Network {name!r} not available!")
+        backbone = build(mode)
     if head == "linear":
         dropout = 0.05
     return ZeroShotModel(

@@ -71,9 +71,10 @@ class Conv3d(nn.Conv3d):
 
 
 def conv3d(cin: int, cout: int, kernel, stride=1, padding=0,
-           bias: bool = False) -> Conv3d:
+           bias: bool = False, groups: int = 1) -> Conv3d:
+    """A Conv3d; `groups` = cin = cout is a channel-wise conv (X3D's)."""
     return Conv3d(cin, cout, kernel, stride=stride, padding=padding,
-                  bias=bias)
+                  bias=bias, groups=groups)
 
 
 _remat = threading.local()

@@ -121,6 +121,16 @@ def _remat_contexts(policy: str):
     return first, _recompute(again)
 
 
+def run_block(block: nn.Module, x, remat):
+    """block(x), rematerialised by the `remat` policy (one of REMATS) while
+    autograd records."""
+    if remat and torch.is_grad_enabled():
+        return ckpt.checkpoint(
+            block, x, use_reentrant=False, preserve_rng_state=False,
+            context_fn=functools.partial(_remat_contexts, remat))
+    return block(x)
+
+
 class VideoResNet(nn.Module):
     feature_dim = 512
 
@@ -143,16 +153,9 @@ class VideoResNet(nn.Module):
 
     def forward(self, x):
         x = self.stem(x)
-        remat = self.remat and torch.is_grad_enabled()
-        context_fn = functools.partial(_remat_contexts, self.remat)
         for name in ("layer1", "layer2", "layer3", "layer4"):
             for block in getattr(self, name):
-                if remat:
-                    x = ckpt.checkpoint(block, x, use_reentrant=False,
-                                        preserve_rng_state=False,
-                                        context_fn=context_fn)
-                else:
-                    x = block(x)
+                x = run_block(block, x, self.remat)
         return L.global_avgpool(x)
 
 

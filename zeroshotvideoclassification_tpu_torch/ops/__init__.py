@@ -20,6 +20,9 @@ version, and the cosine distances.
                     (csrc/temporal_conv.cu), its plain version, the tile plan
   cdist.py          cosine distances (a float32 torch.matmul), nearest class,
                     top-k classes
+  se_swish.py       X3D's squeeze-and-excitation and Swish after conv_b's
+                    BN, one op in plain PyTorch on both devices (no kernel
+                    yet)
 
 A CPU tensor gets the plain version; a CUDA tensor gets the kernel or an
 exception. No path falls back from one to the other.
