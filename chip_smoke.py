@@ -146,8 +146,11 @@ result line) if it fails:
      channels, no multiple of the 8-lane bf16 vector); cli.main's
      Experiment (bf16 over float32 masters) on one host batch: K1 on it
      against its plain version, the counters reset just before one step
-     through device_batch read one K1 launch and 84 of each BN op and
-     gradient, then timed steps as in phase 7;
+     through device_batch read one K1 launch, 84 of each BN op and
+     gradient and 27 of each channel-wise conv kernel (forward, data and
+     weight gradient; each held to its plain version and timed at the 27
+     convs beside its bound and cuDNN's channels-last call first), the same
+     step traced (no cuDNN grouped kernel), then timed steps as in phase 7;
  16. a process group of one under NCCL (r2plus1d_18, 16 clips of
      16x112x112): two float32 steps against the same steps without a group
      (loss rtol 1e-4, parameters atol 2e-5; bit for bit reported), the
@@ -1105,6 +1108,11 @@ def kernel_counts():
     from zeroshotvideoclassification_tpu_torch.ops.temporal_conv import (
         temporal_conv3_cuda,
     )
+    from zeroshotvideoclassification_tpu_torch.ops.channelwise_conv import (
+        channelwise_dgrad_cuda,
+        channelwise_fwd_cuda,
+        channelwise_wgrad_cuda,
+    )
 
     return {"video_transform": fused_video_transform_cuda,
             "bn_apply_relu": bn_apply_relu_cuda,
@@ -1113,7 +1121,10 @@ def kernel_counts():
             "bn_moments": bn_moments_cuda,
             "bn_moments_grad": bn_moments_grad_cuda,
             "image_motion_transform": fused_image_motion_transform_cuda,
-            "temporal_conv3": temporal_conv3_cuda}
+            "temporal_conv3": temporal_conv3_cuda,
+            "channelwise_fwd": channelwise_fwd_cuda,
+            "channelwise_dgrad": channelwise_dgrad_cuda,
+            "channelwise_wgrad": channelwise_wgrad_cuda}
 
 
 def zero_counts():
@@ -2234,18 +2245,22 @@ def phase_serve(paths, prepare, proto, expected, dev, smi, tag="serve",
 
 # ----------------------------------------- the P8 paths (phases 11-15) ----
 
-def expect(k1, fwd, bwd, sums=None):
+def expect(k1, fwd, bwd, sums=None, channelwise=0):
     """The kernels' launch counts of a video path: K1, K2 forward and
     backward, the BN statistics' sums and moments and their gradients,
-    nothing else. Each K2 backward is a train-mode BN's, whose statistics
-    took each op and each gradient once: all default to `bwd`; `sums`
-    counts the train-mode forwards (each one sums and one moments) where
-    some run without a backward."""
+    X3D's channel-wise convs, nothing else. Each K2 backward is a
+    train-mode BN's, whose statistics took each op and each gradient once:
+    all default to `bwd`; `sums` counts the train-mode forwards (each one
+    sums and one moments) where some run without a backward;
+    `channelwise` counts each channel-wise kernel (forward, data and weight
+    gradient) of train steps."""
     stats = bwd if sums is None else sums
     return {"video_transform": k1, "bn_apply_relu": fwd,
             "bn_apply_relu_bwd": bwd, "bn_sums": stats, "bn_sums_grad": bwd,
             "bn_moments": stats, "bn_moments_grad": bwd,
-            "image_motion_transform": 0, "temporal_conv3": 0}
+            "image_motion_transform": 0, "temporal_conv3": 0,
+            "channelwise_fwd": channelwise, "channelwise_dgrad": channelwise,
+            "channelwise_wgrad": channelwise}
 
 
 def cli_epoch(args, tag, want):
@@ -2420,10 +2435,13 @@ def phase_train_resnet18(tmp, dev, smi, copy_gbs):
 
 def phase_train_x3d(tmp, dev, smi, copy_gbs):
     """15b: X3D-M's BN kernels against their plain versions at its 84
-    train-mode BNs of X3D_BS clips, then one step of cli.main's Experiment
-    with the counters reset just before it, and timed steps. -> (that
-    step's launches, K1's record, K2 forward's, K2 backward's, the
-    statistics')."""
+    train-mode BNs of X3D_BS clips and its channel-wise conv kernels at its
+    27 convs, then one step of cli.main's Experiment with the counters
+    reset just before it, that step again in a torch.profiler trace (the
+    channel-wise kernels' launches and device time, no cuDNN grouped
+    kernel), and timed steps. -> (that step's launches, K1's record, K2
+    forward's, K2 backward's, the statistics', the channel-wise
+    convs')."""
     import numpy as np
     import torch
 
@@ -2443,6 +2461,8 @@ def phase_train_x3d(tmp, dev, smi, copy_gbs):
     k2b, k2f = phase_k2_bwd(calls, dev, copy_gbs, key="_x3d", clips=X3D_BS)
     torch.cuda.empty_cache()
     stats = phase_bn_stats(calls, dev, copy_gbs, clips=X3D_BS, key="_x3d")
+    torch.cuda.empty_cache()
+    dwconv = phase_channelwise(dev, copy_gbs)
     torch.cuda.empty_cache()
 
     args = cli_argv(tmp, dev, "bfloat16", X3D_BS, X3D_BS, "--size",
@@ -2469,8 +2489,11 @@ def phase_train_x3d(tmp, dev, smi, copy_gbs):
         f"{X3D_SIZE} through device_batch: loss {float(m['loss']):.5f}, "
         f"launches {launches}")
     check(math.isfinite(float(m["loss"])), f"x3d_m's loss {m['loss']}")
-    check(launches == expect(1, 84, 84),
-          f"train_x3d: launches {launches}, want 84 of each BN op")
+    check(launches == expect(1, 84, 84, channelwise=27),
+          f"train_x3d: launches {launches}, want 84 of each BN op and 27 "
+          f"of each channel-wise kernel")
+    dwconv["trace"] = traced_x3d_in_child(tmp)
+    dwconv["trace_ms"] = dwconv["trace"]["channelwise_ms"]
     check(tuple(batch["x"].shape) == (X3D_BS, 1, CLIP_LEN, X3D_SIZE,
                                       X3D_SIZE, 3)
           and batch["x"].dtype == torch.bfloat16, "x3d_m batch shape")
@@ -2481,12 +2504,228 @@ def phase_train_x3d(tmp, dev, smi, copy_gbs):
         f"within {ulps:.2f} ulp of the plain transform): "
         + bound(k1, row["bytes"], row["flops"], copy_gbs))
     del want
+    from zeroshotvideoclassification_tpu_torch.utils import profiler
+
+    profiler.reset()
     timed = timed_steps(exp, batch, ce, smi, "train_x3d", clips=X3D_BS,
                         size=X3D_SIZE)
     exp.log.close()
+    # where the host's time of an untraced step goes: each span's host ms
+    # per train step (the spans are always counted)
+    spans = profiler.summary()
+    steps = spans["train.step"]["count"]
+    timed["host_ms_per_step"] = {k: v["total_ms"] / steps
+                                 for k, v in sorted(spans.items())}
+    say(f"[train_x3d] host ms a step by span, untraced, over {steps} steps: "
+        + ", ".join(f"{k} {v:.2f}"
+                    for k, v in timed["host_ms_per_step"].items()))
     RECORD["train_x3d"] = {"launches": launches, **timed}
     RECORD["k1_x3d"] = k1
-    return launches, k1, k2f, k2b, stats
+    return launches, k1, k2f, k2b, stats, dwconv
+
+
+def traced_x3d_in_child(tmp):
+    """traced_x3d_step in a spawned process of its own (a second
+    torch.profiler session in one process drops kernels, and K4's trace
+    comes last), on one host batch of X3D_BS clips after two warm-up
+    steps. -> its record."""
+    import multiprocessing
+
+    path = os.path.join(tmp, "x3d_trace.json")
+    proc = multiprocessing.get_context("spawn").Process(
+        target=x3d_trace_entry, args=(os.path.join(tmp, "x3d_trace"), path))
+    proc.start()
+    proc.join(900)
+    check(proc.exitcode == 0, f"the traced X3D-M step exited "
+                              f"{proc.exitcode}")
+    with open(path) as f:
+        return json.load(f)
+
+
+def x3d_trace_entry(tmp, path):
+    """The spawned process of traced_x3d_in_child: its record to `path`."""
+    import torch
+
+    sys.path.insert(0, os.path.join(os.path.dirname(
+        os.path.abspath(__file__)), "tests"))
+    dev = torch.device(DEVICE)
+    args = cli_argv(tmp, dev, "bfloat16", X3D_BS, X3D_BS, "--size",
+                    str(X3D_SIZE), network="x3d_m")
+    exp, host, ce = experiment(args, dev, bs=X3D_BS)
+    batch = to_card(exp, host)
+    for _ in range(2):  # cuDNN's algorithm timing off the trace
+        exp.train_step(batch["x"], batch["z"], batch["label"],
+                       batch["weight"], ce)
+    out = traced_x3d_step(exp, batch, ce)
+    exp.log.close()
+    with open(path, "w") as f:
+        json.dump(out, f)
+
+
+def traced_x3d_step(exp, batch, ce):
+    """One X3D-M train step under torch.profiler: the device ms of its
+    channel-wise kernels (forward and data gradient are the gather kernel,
+    the weight gradient its two kernels) and of cuDNN's, every kernel name
+    that says `grouped` (cuDNN's grouped convs: none may be left), and the
+    step's device ms by kind of kernel."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        exp.train_step(batch["x"], batch["z"], batch["label"],
+                       batch["weight"], ce)
+        torch.cuda.synchronize()
+    kernels = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            k = kernels.setdefault(e.name, [0, 0.0])
+            k[0] += 1
+            k[1] += e.device_time_total / 1e3
+    counts = {kind: sum(n for name, (n, _) in kernels.items() if kind in name)
+              for kind in ("channelwise_gather_kernel",
+                           "channelwise_wgrad_kernel",
+                           "channelwise_wgrad_reduce_kernel")}
+    out = {"kernels_counted": counts,
+           "channelwise_ms": sum(ms for name, (_, ms) in kernels.items()
+                                 if "channelwise" in name),
+           "grouped": sorted(name for name in kernels if "grouped" in name),
+           "device_ms": sum(ms for _, ms in kernels.values()),
+           "top": sorted(((round(ms, 3), n, name[:90])
+                          for name, (n, ms) in kernels.items()),
+                         reverse=True)[:12]}
+    say(f"[train_x3d] a traced step: {json.dumps(out)}")
+    check(counts == {"channelwise_gather_kernel": 54,
+                     "channelwise_wgrad_kernel": 27,
+                     "channelwise_wgrad_reduce_kernel": 27},
+          f"train_x3d: channel-wise kernels in the trace {counts}")
+    check(not out["grouped"], f"train_x3d: cuDNN grouped kernels are left: "
+                              f"{out['grouped']}")
+    return out
+
+
+def phase_channelwise(dev, copy_gbs, clips=X3D_BS, size=X3D_SIZE):
+    """15b: X3D-M's 27 channel-wise convs at `clips` clips of CLIP_LEN x
+    `size` x `size` (9 shapes): each kernel (forward, data gradient, weight
+    gradient) against its plain version in bf16, the weight gradient's bits
+    from two calls, then each timed beside its bound (three passes, every
+    operand once), the plain version and cuDNN's channels-last call of the
+    same conv through autograd (`library_ms`: forward and both gradients).
+    -> the record, times per train step."""
+    import torch
+    import torch.nn.functional as F
+
+    from torch_helpers import x3d_channelwise_shapes
+    from zeroshotvideoclassification_tpu_torch.ops.channelwise_conv import (
+        channelwise_dgrad_cuda,
+        channelwise_dgrad_plain,
+        channelwise_fwd_cuda,
+        channelwise_fwd_plain,
+        channelwise_wgrad_cuda,
+        channelwise_wgrad_plain,
+        output_shape,
+    )
+
+    per_shape = {}
+    for shape in x3d_channelwise_shapes(clips, CLIP_LEN, size):
+        per_shape[shape] = per_shape.get(shape, 0) + 1
+    check(sum(per_shape.values()) == 27, f"x3d_m's convs {per_shape}")
+    keys = ("fwd_ms", "dgrad_ms", "wgrad_ms", "plain_ms", "library_ms")
+    out = {"clips": clips, "shapes": [], "ms": 0.0, "bytes": 0, "flops": 0,
+           "max_ulps": 0.0, **{k: 0.0 for k in keys}}
+    g = torch.Generator(device=dev).manual_seed(3)
+    cl = torch.channels_last_3d
+    for (xs, k, s, p), n in per_shape.items():
+        what = f"channel-wise {'x'.join(map(str, xs))} k{k} s{s}"
+        x = torch.randn(xs, device=dev, generator=g).to(torch.bfloat16,
+                                                        memory_format=cl)
+        w = torch.randn(xs[1], 1, *k, device=dev, generator=g) / math.sqrt(
+            math.prod(k))
+        ys = output_shape(xs, w.shape, s, p)
+        dy = torch.randn(ys, device=dev, generator=g).to(torch.bfloat16,
+                                                         memory_format=cl)
+        y = channelwise_fwd_cuda(x, w, s, p)
+        dx = channelwise_dgrad_cuda(dy, w, xs, s, p)
+        dw = channelwise_wgrad_cuda(x, dy, w.shape, s, p)
+        check(torch.equal(dw, channelwise_wgrad_cuda(x, dy, w.shape, s, p)),
+              f"{what}: two weight gradients differ")
+        ulps = []
+        for got, want, scale in (
+                (y, channelwise_fwd_plain(x, w, s, p),
+                 channelwise_fwd_plain(x.abs(), w.abs(), s, p)),
+                (dx, channelwise_dgrad_plain(dy, w, xs, s, p, x.dtype),
+                 channelwise_dgrad_plain(dy.abs(), w.abs(), xs, s, p,
+                                         x.dtype))):
+            want = want.float()
+            ulp = torch.exp2(torch.floor(torch.log2(torch.clamp_min(
+                want.abs(), 2.0 ** -126))) - 7)
+            # one rounding of float32 sums: an ulp, or the sums' own error
+            # where the products cancel
+            err = ((got.float() - want).abs() - 1e-5 * scale.float()) / ulp
+            ulps.append(float(err.max()))
+            del want, ulp, err, scale
+        want = channelwise_wgrad_plain(x, dy, w.shape, s, p)
+        scale = channelwise_wgrad_plain(x.abs(), dy.abs(), w.shape, s, p)
+        wrel = float(((dw - want).abs() / scale.clamp_min(1e-30)).max())
+        check(max(ulps) <= 1.0 and wrel <= 2e-5,
+              f"{what}: y / dx {ulps} ulp, dW {wrel:.3g} of its sums")
+        del y, dx, dw, want, scale
+        torch.cuda.synchronize()
+        wb = w.to(torch.bfloat16)
+
+        def library():
+            xr = x.detach().requires_grad_(True)
+            wr = wb.detach().requires_grad_(True)
+            yl = F.conv3d(xr, wr, None, s, p, 1, xs[1])
+            torch.autograd.grad(yl, (xr, wr), dy)
+
+        def plain():
+            channelwise_fwd_plain(x, w, s, p)
+            channelwise_dgrad_plain(dy, w, xs, s, p, x.dtype)
+            channelwise_wgrad_plain(x, dy, w.shape, s, p)
+
+        with torch.enable_grad():
+            t = {"fwd_ms": time_ms(lambda: channelwise_fwd_cuda(x, w, s, p)),
+                 "dgrad_ms": time_ms(
+                     lambda: channelwise_dgrad_cuda(dy, w, xs, s, p)),
+                 "wgrad_ms": time_ms(
+                     lambda: channelwise_wgrad_cuda(x, dy, w.shape, s, p)),
+                 "plain_ms": time_ms(plain, reps=3),
+                 "library_ms": time_ms(library, reps=3)}
+        # every operand once in each pass, bf16: (x, y), (dy, dx), (x, dy);
+        # 27 (or 5) multiply-adds an output in each
+        by = 3 * 2 * (x.numel() + math.prod(ys))
+        fl = 3 * 2 * math.prod(k) * math.prod(ys)
+        ms = t["fwd_ms"] + t["dgrad_ms"] + t["wgrad_ms"]
+        for key in keys:
+            out[key] += n * t[key]
+        out["ms"] += n * ms
+        out["bytes"] += n * by
+        out["flops"] += n * fl
+        out["max_ulps"] = max(out["max_ulps"], *ulps)
+        out["shapes"].append({"x": list(xs), "kernel": list(k),
+                              "stride": list(s), "calls": n, "ulps": ulps,
+                              "wgrad_rel": wrel, **t,
+                              "GB_per_s": by / 1e9 / (ms / 1e3)})
+        say(f"[{what}] x{n}: y / dx within {max(ulps):.2f} ulp, dW "
+            f"{wrel:.2g} of its sums, bits equal twice; forward "
+            f"{t['fwd_ms']:.3f} ms, data gradient {t['dgrad_ms']:.3f}, "
+            f"weight gradient {t['wgrad_ms']:.3f} "
+            f"({by / 1e9 / (ms / 1e3):.0f} GB/s over the three); plain "
+            f"{t['plain_ms']:.2f} ms, cuDNN channels-last "
+            f"{t['library_ms']:.2f} ms")
+        del x, w, wb, dy
+        torch.cuda.empty_cache()
+    text = bound(out, out["bytes"], out["flops"], copy_gbs)
+    say(f"[channelwise] per bf16 train step at {clips} clips: kernels "
+        f"{out['ms']:.3f} ms (forward {out['fwd_ms']:.3f}, data gradient "
+        f"{out['dgrad_ms']:.3f}, weight gradient {out['wgrad_ms']:.3f}), "
+        f"{100 * out['bound_ms'] / out['ms']:.1f}% of the bound; plain "
+        f"{out['plain_ms']:.2f} ms, cuDNN channels-last "
+        f"{out['library_ms']:.2f} ms; " + text)
+    out["max_abs_err"] = out["max_ulps"]
+    RECORD["channelwise_x3d"] = out
+    return out
 
 
 def phase_remat(tmp, dev, smi):
@@ -4484,8 +4723,8 @@ def main(argv=None):
         fix_launches = phase_fixconvs(tmp, dev)
         lap('15 fixconvs')
         torch.cuda.empty_cache()
-        x3d_launches, k1_x3d, k2_x3d, k2b_x3d, bn_x3d = phase_train_x3d(
-            tmp, dev, smi, copy_gbs)
+        (x3d_launches, k1_x3d, k2_x3d, k2b_x3d, bn_x3d,
+         dwconv_x3d) = phase_train_x3d(tmp, dev, smi, copy_gbs)
         lap('15b train_x3d')
         release()
         k1_dp, k2b_dp, k2_dp = phase_dp_kernels(tmp, dev, copy_gbs)
@@ -4617,6 +4856,16 @@ def main(argv=None):
                moments_launches=x3d_launches["bn_moments"],
                moments_grad_launches=x3d_launches["bn_moments_grad"],
                sums_ms=bn_x3d["sums_ms"]),
+         "replaces": None},
+        # X3D-M's channel-wise convs (no TPU kernel: the JAX package has no
+        # X3D): the forward's launches in the counted step beside the data
+        # and weight gradients', each pass's ms per step at 64 clips
+        {**row("channelwise_fwd", "channelwise_conv.cu", "", "train_x3d",
+               x3d_launches, dwconv_x3d, clips=dwconv_x3d["clips"],
+               dgrad_launches=x3d_launches["channelwise_dgrad"],
+               wgrad_launches=x3d_launches["channelwise_wgrad"],
+               **{k: dwconv_x3d[k] for k in ("fwd_ms", "dgrad_ms",
+                                             "wgrad_ms")}),
          "replaces": None},
         # data parallelism: a group of one at the training path's shapes;
         # two processes at DP_LOCAL clips each, launches counted in process

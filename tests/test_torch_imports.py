@@ -181,7 +181,7 @@ def test_kernel_sources_ship_with_the_package():
     names = {p.name for p in _build.sources()}
     # K1 and K4 are one kernel template in video_transform.cu
     assert names == {"video_transform.cu", "bn_apply_relu.cu",
-                     "temporal_conv.cu", "bn_stats.cu"}
+                     "temporal_conv.cu", "bn_stats.cu", "channelwise_conv.cu"}
     # the BN kernels' shared header is part of the build's hash
     assert {p.name for p in _build.headers()} == {"bn_common.cuh"}
     # every C entry point the wrappers call is declared with its argtypes
@@ -195,7 +195,9 @@ def test_kernel_sources_ship_with_the_package():
             "zsvc_temporal_conv3_bf16", "zsvc_bn_sums_f32",
             "zsvc_bn_sums_bf16", "zsvc_bn_sums_grad_f32",
             "zsvc_bn_sums_grad_bf16", "zsvc_bn_moments",
-            "zsvc_bn_moments_grad"} == set(_build.SIGNATURES)
+            "zsvc_bn_moments_grad", "zsvc_channelwise_gather_f32",
+            "zsvc_channelwise_gather_bf16", "zsvc_channelwise_wgrad_f32",
+            "zsvc_channelwise_wgrad_bf16"} == set(_build.SIGNATURES)
     # the sums are deterministic: no float atomics in any kernel
     assert "atomicAdd" not in text
 

@@ -1,8 +1,9 @@
 """Helpers shared by the PyTorch port's tests and chip_smoke.py: seeded
 synthetic clips, random BN statistics for JAX trees, a bf16 ulp distance,
-float64 sums of the BN statistics, seeded BatchNorm statistics, seeded C3D
-weights that carry the input, a seeded Adam state, and the removal of a
-test's large files. Imports numpy and torch only."""
+float64 sums of the BN statistics, X3D-M's channel-wise conv shapes, seeded
+BatchNorm statistics, seeded C3D weights that carry the input, a seeded
+Adam state, and the removal of a test's large files. Imports numpy and
+torch only."""
 
 from __future__ import annotations
 
@@ -58,6 +59,25 @@ def bf16_ulps(got: torch.Tensor, want: torch.Tensor) -> float:
     mag = torch.clamp_min(want.abs(), 2.0 ** -126)
     ulp = torch.exp2(torch.floor(torch.log2(mag)) - 7)
     return float(((got - want).abs() / ulp).max()) if want.numel() else 0.0
+
+
+def x3d_channelwise_shapes(clips: int, frames: int, size: int):
+    """X3D-M's 27 channel-wise convs at `clips` clips of frames x size x
+    size, in forward order: (x's shape [N, C, T, H, W], kernel, stride,
+    padding). The stem's (5,1,1) conv at size / 2, then each stage's
+    strided (3,3,3) conv and its stride-1 ones at the inner widths
+    54 / 108 / 216 / 432."""
+    side = size // 2
+    shapes = [((clips, 24, frames, side, side), (5, 1, 1), (1, 1, 1),
+               (2, 0, 0))]
+    for width, depth in zip((24, 48, 96, 192), (3, 5, 11, 7)):
+        inner = int(2.25 * width)
+        shapes.append(((clips, inner, frames, side, side), (3, 3, 3),
+                       (1, 2, 2), (1, 1, 1)))
+        side = (side - 1) // 2 + 1
+        shapes += [((clips, inner, frames, side, side), (3, 3, 3),
+                    (1, 1, 1), (1, 1, 1))] * (depth - 1)
+    return shapes
 
 
 def bn_sums_ref64(x: torch.Tensor, m0: torch.Tensor,

@@ -69,6 +69,10 @@ SIGNATURES = {
     "zsvc_bn_sums_grad_bf16": [_P] * 4 + [_LL] + [_I] * 7 + [_P],
     "zsvc_bn_moments": [_P] * 4 + [_F] * 2 + [_P, _I, _P],
     "zsvc_bn_moments_grad": [_P] * 5 + [_I, _P],
+    "zsvc_channelwise_gather_f32": [_P] * 4 + [_I] * 12 + [_P],
+    "zsvc_channelwise_gather_bf16": [_P] * 4 + [_I] * 12 + [_P],
+    "zsvc_channelwise_wgrad_f32": [_P] * 4 + [_I] * 14 + [_P],
+    "zsvc_channelwise_wgrad_bf16": [_P] * 4 + [_I] * 14 + [_P],
 }
 
 _lock = threading.Lock()

@@ -32,8 +32,10 @@ conv_a's, the stem's and the head's, none on conv_b's and the shortcut's,
 the residual add and relu on conv_c's. Convs run in the compute dtype over
 float32 masters (layers.Conv3d); the SE's convs are plain nn.Conv3d that
 set_compute_dtype leaves in float32, and ops/se_swish.py applies them in
-float32. Each channel-wise conv (27 a forward) runs in the span
-`conv.depthwise`, with its backward bracket `conv.depthwise.backward`.
+float32. Each channel-wise conv (27 a forward) is the op of
+ops/channelwise_conv.py (hand-written kernels forward, data and weight
+gradient on CUDA) and runs in the span `conv.depthwise`, with its backward
+bracket `conv.depthwise.backward`.
 
 Input [N, 3, T, H, W] in channels-last-3d memory. `remat` rematerialises
 the 26 blocks as VideoResNet's (resnet3d.run_block).
@@ -48,6 +50,9 @@ from zeroshotvideoclassification_tpu_torch.models import layers as L
 from zeroshotvideoclassification_tpu_torch.models.resnet3d import (
     REMATS,
     run_block,
+)
+from zeroshotvideoclassification_tpu_torch.ops.channelwise_conv import (
+    channelwise_conv3d,
 )
 from zeroshotvideoclassification_tpu_torch.ops.se_swish import se_swish
 from zeroshotvideoclassification_tpu_torch.utils import profiler
@@ -72,17 +77,15 @@ def round_width(width: float, multiplier: float, min_width: int = 8,
 
 
 def channelwise(conv: L.Conv3d, x: torch.Tensor) -> torch.Tensor:
-    """conv(x) for a channel-wise conv, in the span `conv.depthwise` and
-    its backward bracket. A bfloat16 x on the CPU is convolved in float32
-    over the bfloat16 operands, the output rounded back: PyTorch's CPU
-    bfloat16 channels-last channel-wise conv3d gives the stem's (5,1,1)
-    conv a wrong weight gradient (as large as the gradient itself)."""
+    """conv(x) for a channel-wise conv, through ops/channelwise_conv (the
+    hand-written kernels on CUDA, the plain version on the CPU), in the
+    span `conv.depthwise` and its backward bracket. x is cast to the
+    conv's compute dtype where it has one, and the op rounds the float32
+    master weight to x's dtype, as layers.Conv3d does."""
     with profiler.span("conv.depthwise"):
-        if x.device.type == "cpu" and x.dtype == torch.bfloat16:
-            y = conv._conv_forward(x.float(), conv.weight.to(x.dtype).float(),
-                                   conv.bias).to(x.dtype)
-        else:
-            y = conv(x)
+        dt = conv.compute_dtype
+        y = channelwise_conv3d(x if dt is None else x.to(dt), conv.weight,
+                               conv.stride, conv.padding, conv.bias)
         profiler.backward_bracket("conv.depthwise.backward", (y,), x)
     return y
 

@@ -23,6 +23,11 @@ version, and the cosine distances.
   se_swish.py       X3D's squeeze-and-excitation and Swish after conv_b's
                     BN, one op in plain PyTorch on both devices (no kernel
                     yet)
+  channelwise_conv.py
+                    X3D's channel-wise 3D convs as a torch.autograd.Function:
+                    forward, data-gradient and weight-gradient wrappers
+                    (csrc/channelwise_conv.cu; no TPU kernel, the JAX
+                    package has no X3D) and their plain versions
 
 A CPU tensor gets the plain version; a CUDA tensor gets the kernel or an
 exception. No path falls back from one to the other.
